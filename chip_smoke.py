@@ -1,7 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the full run: a 200-block object
-    python3 chip_smoke.py --blocks 8  # a quicker run on a smaller object
+    python3 chip_smoke.py
 
 Phases, each printing its own lines:
 
@@ -9,22 +8,23 @@ Phases, each printing its own lines:
 1. build: the CUDA kernels of nanorq_tpu_torch/csrc, compiled by nvcc;
 2. kernel parity: each kernel against its plain torch version on the same
    inputs, bit-exact, at the shapes the K=1000 main path gives it (t = 1280
-   and t = 200*1280) and at a ragged shape; kernel and plain times;
-3. encode: an object of Z blocks x K=1000 x T=1280 through the port's
+   and t = 200*1280) and at a ragged shape; kernel and plain times; an
+   index outside the source makes gather_xor raise;
+3. encode: an object of Z=200 blocks x K=1000 x T=1280 through the port's
    Encoder and codec.batch (generate + 200 repair symbols per block);
 4. decode: 6% source loss + 5% repair overhead per block, recovered by
    Decoder.repair_all(backend="device");
 5. checks and times: the systematic property on every block, two blocks
-   against the numpy oracle of the JAX package's host code, the decoded
-   bytes, the kernel launch counts of the main path (phases 3-4), and the
-   encode/decode wall times.
+   against the numpy oracle (nanorq_tpu_torch.host), the decoded bytes, the
+   kernel launch counts of the main path (phases 3-4), no out-of-range
+   gather index in it, and the encode/decode wall times.
 
 Any failure raises and the script exits non-zero.  The last line is one JSON
 object: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Imports no JAX.
+Imports no JAX and nothing of the JAX package: the host pieces it needs come
+through nanorq_tpu_torch.
 """
 
-import argparse
 import json
 import platform
 import subprocess
@@ -33,9 +33,9 @@ import time
 import numpy as np
 import torch
 
-K, T, N_REPAIR = 1000, 1280, 200
+K, T, Z, N_REPAIR = 1000, 1280, 200, 200  # 256 MB: Z blocks of K symbols of T bytes
 SEED = 0  # object bytes, parity inputs and loss patterns all derive from it
-WIDE = 200 * T  # the payload width of the 200-block object
+WIDE = Z * T  # the payload width of the whole object
 
 
 def _say(phase: str, **kv) -> None:
@@ -71,15 +71,13 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int16) - b.to(torch.int16)).abs().max()) if a.numel() else 0
 
 
-def phase_parity(dev, rng) -> dict:
+def phase_parity(dev, rng, P) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
-    from nanorq_tpu.codec.cache import encoder_schedule
-    from nanorq_tpu.rfc.params import params_init
+    from nanorq_tpu_torch.host import encoder_schedule
     from nanorq_tpu_torch.ops import gfmat, kernels
     from nanorq_tpu_torch.ops.lt import lt_plan
     from nanorq_tpu_torch.ops.replay import device_arrays
 
-    P = params_init(K)
     ds = encoder_schedule(P.Kp)
     arr = device_arrays(ds, dev)
     lt = lt_plan(np.arange(P.Kp, dtype=np.uint32), P, dev)
@@ -134,6 +132,17 @@ def phase_parity(dev, rng) -> dict:
     ix = torch.from_numpy(rng.integers(0, 300, (100, 5)).astype(np.int32)).to(dev)
     cases["gather_xor"].append(("ragged src[300,1283] idx(100,5)", False,
                                 lambda: kernels.gather_xor(src, ix), lambda: gfmat.xor_reduce_gather(src, ix)))
+    for s300 in (src, zero_last(u8(300, T))):  # byte lanes, then 16-byte lanes
+        kernels.gather_xor(s300, ix, check=True)  # in range: no error
+        for bad in (300, -1):  # one past the last row, and a negative index
+            bad_ix = ix.clone()
+            bad_ix[37, 2] = bad
+            try:
+                kernels.gather_xor(s300, bad_ix, check=True)
+            except IndexError:
+                continue
+            raise AssertionError(f"gather_xor took index {bad} of a 300-row source")
+    _say("parity", kernel="gather_xor", out_of_range_index="IndexError")
     bits, Xr = packed(50, kr), u8(kr, tr)
     cases["gf2_matmul"].append((f"ragged bits[50,{kr}] X[{kr},{tr}]", False,
                                 lambda: kernels.gf2_matmul(bits, Xr),
@@ -165,21 +174,10 @@ def phase_parity(dev, rng) -> dict:
     return report
 
 
-def _numpy_lt(C: np.ndarray, isis: np.ndarray, P) -> np.ndarray:
-    """LT symbols of `isis` over C by the RFC tuples, in numpy."""
-    from nanorq_tpu.rfc.tuples import lt_indices
-
-    idx, valid = lt_indices(isis.astype(np.uint32), P)
-    out = np.zeros((isis.size, C.shape[1]), np.uint8)
-    for j in range(idx.shape[1]):
-        out ^= np.where(valid[:, j, None], C[idx[:, j]], 0).astype(np.uint8)
-    return out
-
-
 def phase_device() -> tuple[str, str, torch.device]:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
-    from nanorq_tpu.native import native_available
+    from nanorq_tpu_torch.host import native_available
 
     smi = _smi()
     kind = torch.cuda.get_device_name(0)
@@ -216,14 +214,12 @@ def phase_encode(enc, batch, dev) -> tuple[dict, list[float]]:
     return reps, secs
 
 
-def phase_decode(enc, data, reps, dev, seed: int, Z: int):
+def phase_decode(enc, data, reps, dev, seed: int):
     """repair_all(backend="device") at 6% loss + 5% overhead on every block,
     cold (every pattern solved fresh) then warm (plans cached)."""
-    from nanorq_tpu.codec.cache import WSchedule
-    from nanorq_tpu.codec.oti import make_tag
-    from nanorq_tpu.io.ioctx import MemoryIO
     from nanorq_tpu_torch.codec import cache as tcache
     from nanorq_tpu_torch.codec.api import Decoder
+    from nanorq_tpu_torch.host import MemoryIO, make_tag
 
     payloads = data.reshape(Z * K, T)
     rng = np.random.default_rng(seed)
@@ -255,7 +251,7 @@ def phase_decode(enc, data, reps, dev, seed: int, Z: int):
     kinds = {"gf2_w": 0, "gf256_w": 0, "structured": 0}
     for _gaps, isis, ov in preps:  # the plans decoder_plan cached for these patterns
         plan = tcache.decoder_plan(enc.P, isis, ov)
-        if isinstance(plan, WSchedule):
+        if isinstance(plan, tcache.WSchedule):
             kinds["gf2_w" if plan.Wbits is not None else "gf256_w"] += 1
         else:
             kinds["structured"] += 1
@@ -263,11 +259,10 @@ def phase_decode(enc, data, reps, dev, seed: int, Z: int):
     return (out_cold, out_warm), (cold_s, warm_s), kinds, gaps
 
 
-def phase_checks(enc, batch, reps, data, outs, dev, Z: int) -> tuple[int, float]:
+def phase_checks(enc, batch, reps, data, outs, dev) -> tuple[int, float]:
     """The systematic property on every block, two blocks against the numpy
     oracle, and the decoded bytes."""
-    from nanorq_tpu.codec.cache import encoder_schedule
-    from nanorq_tpu.precode.device_schedule import replay_structured_numpy
+    from nanorq_tpu_torch.host import encoder_schedule, lt_numpy, replay_numpy
     from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
 
     P, C = enc.P, batch.C
@@ -277,11 +272,11 @@ def phase_checks(enc, batch, reps, data, outs, dev, Z: int) -> tuple[int, float]
         raise AssertionError("systematic property fails: LT(C, isi < K') != source rows")
     del sys_sym, D_dev
     t0 = time.perf_counter()
-    nb = min(2, Z)
-    C_np = replay_structured_numpy(batch.D[:, : nb * T], encoder_schedule(P.Kp))
+    nb = 2
+    C_np = replay_numpy(batch.D[:, : nb * T], encoder_schedule(P.Kp))
     if not np.array_equal(C[:, : nb * T].cpu().numpy(), C_np):
-        raise AssertionError("C differs from replay_structured_numpy")
-    want = _numpy_lt(C_np, np.arange(P.Kp, P.Kp + N_REPAIR), P)
+        raise AssertionError("C differs from the numpy replay")
+    want = lt_numpy(C_np, np.arange(P.Kp, P.Kp + N_REPAIR), P)
     for b in range(nb):
         if not np.array_equal(reps[b], want[:, b * T : (b + 1) * T]):
             raise AssertionError(f"repair symbols of block {b} differ from the numpy LT")
@@ -293,26 +288,21 @@ def phase_checks(enc, batch, reps, data, outs, dev, Z: int) -> tuple[int, float]
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--blocks", type=int, default=200, help="source blocks Z of the object (default 200)")
-    args = ap.parse_args()
-
     smi, kind, dev = phase_device()  # phase 0
     phase_build()  # phase 1
-    rng = np.random.default_rng(SEED)
-    report = phase_parity(dev, rng)  # phase 2
 
-    from nanorq_tpu.io.ioctx import MemoryIO
     from nanorq_tpu_torch.codec import batch as tbatch
     from nanorq_tpu_torch.codec.api import Encoder
+    from nanorq_tpu_torch.host import MemoryIO
     from nanorq_tpu_torch.ops import kernels
 
-    Z = args.blocks
     F = Z * K * T
-    data = rng.integers(0, 256, F, dtype=np.uint8)
     enc = Encoder(F, T, Al=8, Z=Z, device=dev)
     if enc.num_blocks != Z or any(enc.block_symbols(b) != K for b in range(Z)):
         raise AssertionError(f"scheme is not {Z} blocks of K={K}")
+    rng = np.random.default_rng(SEED)
+    report = phase_parity(dev, rng, enc.P)  # phase 2
+    data = rng.integers(0, 256, F, dtype=np.uint8)
     t0 = time.perf_counter()
     batch = tbatch.load_object(enc, MemoryIO(data))
     load_s = time.perf_counter() - t0
@@ -322,13 +312,15 @@ def main() -> None:
     enc_launches = dict(kernels.LAUNCHES)
     _say("encode", blocks=Z, K=K, T=T, bytes=F, load_s=f"{load_s:.3f}",
          cold_s=f"{enc_s[0]:.4f}", warm_s=f"{enc_s[1]:.4f}", launches=json.dumps(enc_launches))
-    outs, dec_s, kinds, ngaps = phase_decode(enc, data, reps, dev, SEED + 1, Z)  # phase 4
+    outs, dec_s, kinds, ngaps = phase_decode(enc, data, reps, dev, SEED + 1)  # phase 4
     main_launches = dict(kernels.LAUNCHES)  # the main path ends here
+    if kernels.take_index_errors(dev):
+        raise AssertionError("a gather of the main path met an index outside its source")
     dec_launches = {n: main_launches[n] - enc_launches[n] for n in main_launches}
     _say("decode", loss=0.06, overhead=0.05, gaps=ngaps, cold_s=f"{dec_s[0]:.4f}",
          warm_s=f"{dec_s[1]:.4f}", plans=json.dumps(kinds), launches=json.dumps(dec_launches))
 
-    nb, oracle_s = phase_checks(enc, batch, reps, data, outs, dev, Z)  # phase 5
+    nb, oracle_s = phase_checks(enc, batch, reps, data, outs, dev)  # phase 5
     if not all(enc_launches[n] > 0 for n in enc_launches):
         raise AssertionError(f"encode missed a kernel: {enc_launches}")
     if not (dec_launches["gather_xor"] > 0 and dec_launches["gf2_matmul"] > 0):

@@ -4,7 +4,9 @@ Each wrapper checks what it is given and raises on anything its kernel does
 not take.  On CPU tensors it runs the plain torch version in `ops/gfmat.py`;
 on CUDA tensors it launches the kernel on the current stream, or raises --
 there is no fallback.  `LAUNCHES[name]` counts kernel launches (CUDA only),
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels.  An index
+that gather_xor cannot take raises on the CPU; on CUDA the kernel sets a
+device flag that `take_index_errors` reads.
 
 Every wrapper takes an optional `out`: when given, the result is XORed into
 it in place (the replay accumulates gathers and products into row blocks it
@@ -80,10 +82,36 @@ def _device_kind(*xs: torch.Tensor) -> str:
     return dev.type
 
 
-def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+_INDEX_ERR: dict = {}  # CUDA device -> int32 [1], set by K1 on an index outside [0, S)
+
+
+def take_index_errors(device: torch.device) -> bool:
+    """Whether a gather_xor launch on the CUDA `device` met an index outside
+    [0, S) since the last call, and clear the flag.  Waits for the device."""
+    flag = _INDEX_ERR.get(torch.device(device))
+    if flag is None:
+        return False
+    bad = bool(flag.item())
+    flag.zero_()
+    return bad
+
+
+def _index_flag(dev: torch.device) -> torch.Tensor:
+    flag = _INDEX_ERR.get(dev)
+    if flag is None:
+        flag = _INDEX_ERR[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return flag
+
+
+def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = None, *,
+               check: bool = False) -> torch.Tensor:
     """K1: out[i] = XOR_k src[idx[i, k]];  src uint8 [S, t], idx int32 [n, w].
 
-    Indices must lie in [0, S); the codec's sentinels point at a zero row."""
+    Indices must lie in [0, S); the codec's sentinels point at a zero row.
+    An index outside raises IndexError: always on the CPU; on CUDA the
+    kernel flags it on the device, and the wrapper raises when `check` is
+    set (which waits for the kernel) -- else the flag stays set for
+    `take_index_errors`."""
     _bytes2d(src, "src")
     _need(idx.dtype == torch.int32 and idx.dim() == 2 and idx.is_contiguous(),
           f"idx: expected a contiguous 2-D int32 tensor, got {idx.dtype} {tuple(idx.shape)}")
@@ -91,8 +119,10 @@ def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = 
     n, w = idx.shape
     out = _out(out, (n, t), src, idx)
     if _device_kind(src, idx) == "cpu":
-        if w == 0:
+        if n == 0 or w == 0:
             return _plain(src.new_zeros(n, t), out)
+        if int(idx.min()) < 0 or int(idx.max()) >= S:
+            raise IndexError(f"gather_xor: an index lies outside [0, {S})")
         return _plain(gfmat.xor_reduce_gather(src, idx), out)
     acc = out is not None
     res = out if acc else torch.empty((n, t), dtype=torch.uint8, device=src.device)
@@ -100,7 +130,9 @@ def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = 
         lib = _build.load()
         with torch.cuda.device(src.device):
             _launch("gather_xor", lib.nrq_gather_xor, src.data_ptr(), S, t, idx.data_ptr(), n, w,
-                    res.data_ptr(), int(acc), _stream(src.device))
+                    res.data_ptr(), int(acc), _index_flag(src.device).data_ptr(), _stream(src.device))
+        if check and take_index_errors(src.device):
+            raise IndexError(f"gather_xor: an index lies outside [0, {S})")
     return res
 
 

@@ -2,6 +2,8 @@
 original bytes: Encoder.encode_batch, codec.batch, and Decoder round trips
 through every decode plan kind."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -83,9 +85,48 @@ def test_decode_round_trip_device(case, monkeypatch):
     assert dec.repair_all(io, backend="device")
     assert np.array_equal(out, data)
     for gaps, isis, ov in preps:
-        plan = tcache.decoder_plan(dec.P, isis, ov)
-        kind = ("gf2_w" if plan.Wbits is not None else "gf256_w") if isinstance(plan, jcache.WSchedule) else "structured"
-        assert kind == case
+        assert _kind(tcache.decoder_plan(dec.P, isis, ov)) == case
+
+
+def _kind(plan) -> str:
+    if isinstance(plan, jcache.WSchedule):
+        return "gf2_w" if plan.Wbits is not None else "gf256_w"
+    return "structured"
+
+
+def _same(a, b) -> bool:
+    """Field-for-field equality of decode plans (arrays by dtype and value)."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return type(a) is type(b) and a.dtype == b.dtype and np.array_equal(a, b)
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    if dataclasses.is_dataclass(a):
+        return all(_same(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a))
+    if isinstance(a, jcache.WSchedule):
+        return all(_same(getattr(a, f), getattr(b, f)) for f in ("M_pad", "n_out", "Wbits", "rows", "W"))
+    return a == b
+
+
+@pytest.mark.parametrize("case", ["gf2_w", "gf256_w", "structured"])
+def test_decoder_plan_equals_jax(case, monkeypatch):
+    """The port's decoder_plan (with its own W constructors) returns the plan
+    nanorq_tpu.codec.cache.decoder_plan returns, field for field."""
+    from nanorq_tpu.native import native_available
+
+    if case != "structured" and not native_available():
+        pytest.skip("W plans need the native solver")
+    if case == "structured":
+        monkeypatch.setattr(jcache, "WPATH_MAX_KP", 0)
+        monkeypatch.setattr(jcache, "WPATH_GF256_MAX_KP", 0)
+    tcache.clear_decoder_cache()
+    rng, data = _object(9)
+    dec, _, _ = _lossy_decoder(data, rng, overhead={"gf2_w": 15, "gf256_w": 2}.get(case))
+    for sbn in range(Z):
+        _gaps, isis, ov = dec._repair_prepare(sbn)
+        got, want = tcache.decoder_plan(dec.P, isis, ov), jcache.decoder_plan(dec.P, isis, ov)
+        assert _kind(got) == case and _same(got, want)
 
 
 def test_repair_block_and_host_arm():

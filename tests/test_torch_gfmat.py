@@ -113,6 +113,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
             kernels.gather_xor(X, torch.zeros((2, 1), dtype=torch.int64))
 
 
+@pytest.mark.parametrize("bad", [10, 11, -1])
+def test_gather_xor_rejects_out_of_range_index(bad):
+    """An index outside [0, S) raises; none is wrapped or read as zero."""
+    src = torch.zeros((10, 16), dtype=torch.uint8)
+    idx = torch.tensor([[0, 9], [bad, 1]], dtype=torch.int32)
+    with pytest.raises(IndexError):
+        kernels.gather_xor(src, idx)
+    with pytest.raises(IndexError):
+        kernels.gather_xor(src, idx, check=True)
+
+
 def test_cpu_calls_do_not_count_launches():
     kernels.reset_launches()
     kernels.gather_xor(torch.zeros((2, 4), dtype=torch.uint8), torch.zeros((1, 1), dtype=torch.int32))
@@ -142,3 +153,11 @@ def test_kernels_match_plain_on_card(t):
         assert torch.equal(kernels.gf256_matmul(M, X), gfmat.gf256_matmul(M, X))
     torch.cuda.synchronize()
     assert all(kernels.LAUNCHES[n] > before[n] for n in before)
+    assert not kernels.take_index_errors(dev)
+    for bad in (500, -1):  # the kernel flags an index outside the source
+        bad_idx = idx.clone()
+        bad_idx[5, 3] = bad
+        with pytest.raises(IndexError):
+            kernels.gather_xor(src, bad_idx, check=True)
+        kernels.gather_xor(src, bad_idx)  # unchecked: the flag waits for take_index_errors
+        assert kernels.take_index_errors(dev) and not kernels.take_index_errors(dev)

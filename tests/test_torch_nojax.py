@@ -3,6 +3,7 @@
 The test process itself has JAX loaded (tests/conftest.py), so the no-JAX
 run happens in a fresh interpreter."""
 
+import ast
 import os
 import pathlib
 import subprocess
@@ -16,11 +17,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 _SCRIPT = r"""
 import sys
 import numpy as np
-from nanorq_tpu.codec.oti import make_tag
-from nanorq_tpu.io.ioctx import MemoryIO
 from nanorq_tpu_torch import entry
 from nanorq_tpu_torch.codec import batch
 from nanorq_tpu_torch.codec.api import Decoder, Encoder
+from nanorq_tpu_torch.host import MemoryIO, make_tag
 
 K, T, Z = 100, 32, 2
 rng = np.random.default_rng(0)
@@ -52,13 +52,40 @@ def test_port_runs_without_jax():
     assert r.stdout.strip().splitlines()[-1] == "False"
 
 
+def _imports(path: pathlib.Path) -> set[str]:
+    """Every module a file imports, at any depth of its code."""
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return mods
+
+
 def test_no_module_of_the_port_imports_jax():
-    for path in [*(REPO / "nanorq_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
-        for line in path.read_text().splitlines():
-            s = line.strip()
-            if s.startswith(("import ", "from ")):
-                mod = s.split()[1]
-                assert not mod.startswith(("jax", "nanorq_tpu.ops", "nanorq_tpu.parallel")), f"{path}: {s}"
+    for path in (REPO / "nanorq_tpu_torch").rglob("*.py"):
+        for mod in _imports(path):
+            assert not mod.startswith(("jax", "nanorq_tpu.ops", "nanorq_tpu.parallel")), f"{path}: {mod}"
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the codec through nanorq_tpu_torch alone, and
+    importing all it imports, and every module of the port, loads no JAX."""
+    mods = _imports(REPO / "chip_smoke.py")
+    for mod in mods:
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "nanorq_tpu"), f"chip_smoke.py imports {mod}"
+    port = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
+                  for p in (REPO / "nanorq_tpu_torch").rglob("*.py"))
+    script = "\n".join(["import importlib, sys",
+                        f"for m in {sorted(mods) + port + ['chip_smoke']!r}:",
+                        "    importlib.import_module(m.removesuffix('.__init__'))",
+                        "print('jax' in sys.modules)"])
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    r = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "False"
 
 
 def test_kernels_raise_without_nvcc(monkeypatch, tmp_path):
