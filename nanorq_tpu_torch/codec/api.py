@@ -6,21 +6,33 @@ These subclasses override every method that reached JAX, and run the device
 work on the explicit `device` they were built with:
 
 - encode: the structured replay (ops/replay.py) and LT combine (ops/lt.py);
-- decode (`backend="device"`): the dense-W matmul (ops/wpath.py) for
-  WSchedule plans, or the replay plus a gap LT combine for structured plans;
-- decode (`backend="host"`): the inherited native CPU arm, which has no
-  device half.
+- decode, per `backend` of `repair_all` (default: env NANORQ_DECODE_BACKEND,
+  else "auto", as in the JAX package):
+  - "device": the dense-W matmul (ops/wpath.py) for WSchedule plans, or the
+    replay plus a gap LT combine for structured plans;
+  - "res": the residual arm, no per-pattern solve: canonical w-rows, a
+    native G-inverse per block and one batched K3 product per chunk
+    (ops/wpath.res_apply_batch).  Raises when the native factorization is
+    missing, where the JAX package quietly reroutes to the host;
+  - "res_host" and "host": the native CPU arms, with no device half;
+  - "auto": warm patterns (a device plan already cached) on the device,
+    cold ones on "res_host" up to K' = NANORQ_RES_HOST_MAX (256), else on
+    "host" -- the JAX package's rule, unchanged.
 
-Not ported yet, and raising NotImplementedError: the residual arm and the
-`auto` routing (ROADMAP Queue 1 item 8) and `mesh=` (item 10).
+Not ported yet, and raising NotImplementedError: `mesh=` (ROADMAP Queue 1
+item 10).
 """
+
+import os
 
 import numpy as np
 import torch
 
 from nanorq_tpu.codec import api as _api
 from nanorq_tpu.codec import cache as _jcache
+from nanorq_tpu.codec.partition import symbol_ranges
 from nanorq_tpu.io.ioctx import IOContext
+from nanorq_tpu.native import host_residual_flat, native_available, res_rinv
 from nanorq_tpu.utils import stats
 from nanorq_tpu_torch.codec import cache as _cache
 from nanorq_tpu_torch.device import resolve
@@ -29,7 +41,9 @@ from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
 from nanorq_tpu_torch.ops.replay import device_arrays, replay
 
 _NO_MESH = "mesh= is not ported yet (ROADMAP Queue 1 item 10, multi-GPU)"
-_NO_RES = "the residual arm and auto routing are not ported yet (ROADMAP Queue 1 item 8)"
+_NO_FACTOR = ('backend "res" needs the native solver\'s canonical factorization, '
+              "which is unavailable here; no other arm is taken in its place")
+BACKENDS = ("auto", "device", "host", "res", "res_host")
 
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -127,19 +141,206 @@ class Decoder(_api.Decoder):
 
     def _repair_pipeline(self, max_workers: int | None = None, mesh=None, backend: str | None = None,
                          io: IOContext | None = None):
-        """backend "device" (the default) or "host"; see the module docstring."""
+        """Route every gap block to an arm and launch it; (ok, launched) as in
+        nanorq_tpu (see the module docstring for the backends)."""
         if mesh is not None:
             raise NotImplementedError(_NO_MESH)
-        backend = backend or "device"
-        if backend not in ("device", "host"):
-            raise NotImplementedError(f"backend {backend!r}: {_NO_RES}")
-        return super()._repair_pipeline(max_workers, backend=backend, io=io)
+        backend = backend or os.environ.get("NANORQ_DECODE_BACKEND", "auto")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
+        work, ok = [], True
+        for sbn in range(self.num_blocks):
+            prep = self._repair_prepare(sbn)
+            if isinstance(prep, bool):
+                ok = ok and prep
+            else:
+                work.append((sbn, *prep))
+        if not work:
+            return ok, []
+        if backend == "res":
+            rok, launched = self._repair_residual_batch(work)
+            return ok and rok, launched
+        if backend == "device" or not native_available():
+            dok, launched = self._repair_pipeline_device(work, max_workers)
+            return ok and dok, launched
+
+        rhost_work, host_work, dev_work = [], [], []
+        if backend == "host":
+            host_work = work
+        elif backend == "res_host":
+            rhost_work = work
+        else:  # auto: warm plans on the device; cold patterns on the host
+            small = self.P.Kp <= _api._RES_HOST_MAX
+            for item in work:
+                hit, plan = _cache.decoder_plan_cached(self.P, item[2], item[3])
+                if hit and plan is not None:
+                    dev_work.append(item)
+                elif small:
+                    rhost_work.append(item)
+                else:
+                    host_work.append(item)
+        launched = []
+        if rhost_work:
+            rres = self._repair_residual_host_batch(rhost_work, io)
+            if rres is None:  # no native factorization: the patched host solve
+                host_work = host_work + rhost_work
+            else:
+                rok, results = rres
+                ok = ok and rok
+                launched.extend(results)
+        if host_work:
+            res = self._repair_host_batch(host_work, io)
+            if res is None:  # native vanished mid-flight: everything on the device
+                dev_work, launched = work, []
+            else:
+                hok, results = res
+                ok = ok and hok
+                launched.extend(results)
+        if dev_work:
+            dok, dlaunched = self._repair_pipeline_device(dev_work, max_workers)
+            ok = ok and dok
+            launched.extend(dlaunched)
+        return ok, launched
 
     def _repair_residual_batch(self, work):
-        raise NotImplementedError(_NO_RES)
+        """Residual arm (nanorq_tpu's _repair_residual_batch): repair without a
+        per-pattern solve.  A received repair symbol is y = w . D over the
+        canonical system, so y = W D0 + G X with G = W[:, gaps]; the host
+        finds G's left inverse R (native res_rinv) and the device computes
+        X = R (y ^ W D0) for a chunk of up to _BATCH_FLUSH blocks at once
+        (wpath.res_apply_batch).  Rows and columns are padded to the chunk's
+        largest block, not to a power of two: eager CUDA compiles nothing per
+        shape, and zero rows are exact no-ops.
+
+        work: [(sbn, gaps, isis, overhead)] -> (ok, [(sbn, gaps, view)]); a
+        rank-deficient G fails its block.  Raises RuntimeError when the
+        native factorization is unavailable."""
+        P, T = self.P, self.scheme.T
+        kc = _jcache.res_kcols(P)
+        metas, Ws, Gs = [], [], []
+        with stats.timer("res_prep"):
+            for sbn, gaps, isis, ov in work:
+                W = _cache.res_wrows(P, np.concatenate([isis[gaps], isis[P.Kp : P.Kp + ov]]))
+                if W is None:
+                    raise RuntimeError(_NO_FACTOR)
+                metas.append((sbn, gaps))
+                Ws.append(W)
+                Gs.append(np.ascontiguousarray(W[:, gaps]))
+        with stats.timer("res_rinv"):
+            rr = res_rinv(Gs)
+        if rr is None:
+            raise RuntimeError(_NO_FACTOR)
+        ok, items = True, []
+        for meta, W, R, status in zip(metas, Ws, *rr):
+            if status == 0:
+                items.append((meta, W, R))
+            else:
+                stats.count("decode_rank_deficient")
+                stats.count("repair_block_failed")
+                ok = False
+        stats.count("repair_res_blocks", len(items))
+        dev, launched = self.device, []
+        for c0 in range(0, len(items), self._BATCH_FLUSH):
+            chunk = items[c0 : c0 + self._BATCH_FLUSH]
+            nb = len(chunk)
+            nr = max(W.shape[0] for _, W, _ in chunk)
+            g = max(m[1].size for m, _, _ in chunk)
+            Wst = np.zeros((nb, nr, kc), np.uint8)
+            Rst = np.zeros((nb, g, nr), np.uint8)
+            D0 = np.zeros((nb, kc, T), np.uint8)
+            yst = np.zeros((nb, nr, T), np.uint8)
+            for j, ((sbn, gaps), W, R) in enumerate(chunk):
+                Wst[j, : W.shape[0]] = W
+                Rst[j, : gaps.size, : W.shape[0]] = R
+                b = self._block(sbn)
+                if b.D is not None:
+                    n = min(b.D.shape[0], kc)
+                    D0[j, :n] = b.D[:n]
+                yst[j, : W.shape[0]] = b.rep_rows[: W.shape[0]]
+            res = _HostResult(wpath.res_apply_batch(_upload(Wst, dev), _upload(D0, dev),
+                                                    _upload(Rst, dev), _upload(yst, dev)))
+            launched.extend((m[0], m[1], _HostView(res, j)) for j, (m, _, _) in enumerate(chunk))
+        return ok, launched
 
     def _repair_residual_host_batch(self, work, io: IOContext | None = None):
-        raise NotImplementedError(_NO_RES)
+        """Solve-free CPU repair (nanorq_tpu's _repair_residual_host_batch,
+        line for line, with the port's res_wrows_flat): X = R (y ^ W D0) run by
+        the native host_residual_flat, reading payloads in place and writing
+        recovered rows straight into a writable buffer `io`.
+
+        work: [(sbn, gaps, isis, overhead)] -> (ok, [(sbn, gaps, rows | None)]),
+        or None when the native factorization is unavailable (the caller
+        reroutes to the host arm)."""
+        P, T = self.P, self.scheme.T
+        scheme = self.scheme
+        kc = _jcache.res_kcols(P)
+        Kp = P.Kp
+        nb = len(work)
+        with stats.timer("res_prep"):
+            buf_base = None
+            if io is not None and scheme.N == 1:
+                buf = getattr(io, "buffer", None)
+                if (buf is not None and io.writable and buf.flags["C_CONTIGUOUS"]
+                        and buf.size >= scheme.F):
+                    buf_base = np.uint64(buf.ctypes.data)
+            isi_list, gaps_list = [], []
+            for sbn, gaps, isis, ov in work:
+                ng = gaps.size
+                rep_isis = np.empty(ng + ov, np.uint32)
+                rep_isis[:ng] = isis[gaps]
+                rep_isis[ng:] = isis[Kp : Kp + ov]
+                isi_list.append(rep_isis)
+                gaps_list.append(gaps)
+            flat = _cache.res_wrows_flat(P, isi_list)
+            if flat is None:
+                return None
+            W_all, _, nrs = flat
+            ngaps = np.fromiter((g.size for g in gaps_list), np.int64, nb)
+            gaps_all = np.concatenate(gaps_list).astype(np.int32) if nb else np.zeros(0, np.int32)
+            gaps_off = np.zeros(nb, np.int64)
+            if nb > 1:
+                np.cumsum(ngaps[:-1], out=gaps_off[1:])
+            d0p_all = np.zeros(nb * kc, np.uint64)
+            yp_all = np.empty(int(nrs.sum()), np.uint64)
+            orow_all = np.empty(int(ngaps.sum()), np.uint64)
+            temps: list = [None] * nb
+            yo = oo = 0
+            for j, (sbn, gaps, isis, ov) in enumerate(work):
+                ng, nr = gaps.size, int(nrs[j])
+                b = self._block(sbn)
+                if b.D is not None:
+                    have = np.nonzero(b.got)[0]
+                    d0p_all[j * kc + have] = np.uint64(b.D.ctypes.data) + have.astype(
+                        np.uint64) * np.uint64(b.D.strides[0])
+                yp_all[yo : yo + nr] = np.uint64(b.rep_rows.ctypes.data) + np.arange(
+                    nr, dtype=np.uint64) * np.uint64(b.rep_rows.strides[0])
+                yo += nr
+                op = None
+                if buf_base is not None:
+                    base = symbol_ranges(scheme, sbn, 0, b.K)[0][0]
+                    offs = base + gaps.astype(np.uint64) * np.uint64(T)
+                    if not (ng and int(offs[-1]) + T > scheme.F):  # short tail
+                        op = buf_base + offs
+                if op is None:
+                    temps[j] = np.empty((ng, T), np.uint8)
+                    op = np.uint64(temps[j].ctypes.data) + np.arange(ng, dtype=np.uint64) * np.uint64(T)
+                orow_all[oo : oo + ng] = op
+                oo += ng
+        with stats.timer("host_residual"):
+            statuses = host_residual_flat(kc, T, nrs, ngaps, gaps_all, gaps_off, W_all, d0p_all,
+                                          yp_all, orow_all)
+        if statuses is None:
+            return None
+        stats.count("repair_res_host_blocks", nb)
+        ok, results = True, []
+        for j, (sbn, gaps, _, _) in enumerate(work):
+            if statuses[j] == 0:
+                results.append((sbn, gaps, temps[j]))
+            else:
+                stats.count("decode_rank_deficient")
+                stats.count("repair_block_failed")
+                ok = False
+        return ok, results
 
     def _repair_pipeline_device(self, work, max_workers: int | None = None, mesh=None):
         """Device arm: per-pattern plans solved in one worker thread while
@@ -149,6 +350,7 @@ class Decoder(_api.Decoder):
 
         if mesh is not None:
             raise NotImplementedError(_NO_MESH)
+        stats.count("repair_device_blocks", len(work))
         ok, launched, pend = True, [], {}
 
         def flush(key):

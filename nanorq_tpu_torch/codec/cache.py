@@ -3,10 +3,17 @@
 `decoder_plan` is `nanorq_tpu.codec.cache.decoder_plan` with the W constructors
 taken from the port (the JAX package's live in a module that imports jax):
 the same solve, the same cut-overs, the same `WSchedule`/`DeviceSchedule`
-objects.  `stage` uploads a `WSchedule`'s numpy fields as tensors; the class
-has `__slots__`, so the staged tensors live in a bounded cache of the port's
-own, keyed by the schedule object and device.
+objects, cached in the port's own `_dec_cache`, which `decoder_plan_cached`
+probes.  `res_wrows`/`res_wrows_flat` are the residual arm's canonical
+combination rows, computed as the JAX package computes them but with the
+port's `w_rows`, and memoized in the port's own bounded memo.  `stage`
+uploads a `WSchedule`'s numpy fields as tensors; the class has `__slots__`,
+so the staged tensors live in a bounded cache of the port's own, keyed by the
+schedule object and device.
 """
+
+from collections import OrderedDict
+from threading import Lock
 
 import numpy as np
 import torch
@@ -23,14 +30,84 @@ from nanorq_tpu_torch.ops import wpath
 
 _dec_cache = ByteLRU(256 << 20, "torch_dec_cache")
 _staged = ByteLRU(256 << 20, "torch_w_staged")
+# canonical w-row per (K', ISI), least recently used first; bounded to
+# NANORQ_WROW_CACHE_MB as nanorq_tpu.codec.cache bounds its own
+_wrow_lock = Lock()
+_wrow_cache: OrderedDict = OrderedDict()
 
 
 def clear_decoder_cache() -> None:
-    """Drop cached decode plans and staged tensors (and the shared per-ISI
-    host memos of nanorq_tpu.codec.cache)."""
+    """Drop cached decode plans, staged tensors and canonical w-rows (and the
+    shared per-ISI host memos of nanorq_tpu.codec.cache)."""
     _dec_cache.clear()
     _staged.clear()
+    with _wrow_lock:
+        _wrow_cache.clear()
     _cache.clear_decoder_cache()
+
+
+def decoder_plan_cached(P: Params, isis: np.ndarray, overhead: int):
+    """(hit, plan): whether `decoder_plan` already holds this pattern's plan
+    -- the auto backend's warm-plan probe."""
+    return _dec_cache.get(_cache._plan_key(P, isis, overhead))
+
+
+def _wrows_unique(P: Params, st, uniq: np.ndarray) -> np.ndarray:
+    """Canonical combination rows [uniq.size, res_kcols(P)] for distinct repair
+    ISIs, through the memo; the missing ones in one w_rows call."""
+    kc = _cache.res_kcols(P)
+    Wu = np.empty((uniq.size, kc), np.uint8)
+    missing = []
+    with _wrow_lock:
+        for j, isi in enumerate(uniq.tolist()):
+            got = _wrow_cache.get((P.Kp, isi))
+            if got is None:
+                missing.append(j)
+            else:
+                _wrow_cache.move_to_end((P.Kp, isi))
+                Wu[j] = got
+    if missing:
+        midx = np.asarray(missing, np.int64)
+        with stats.timer("res_wrows"):
+            W, _ = wpath.w_rows(st, _cache._lt_rows_cached(P, uniq[midx]), n_cols=_pad_rows(st.M + 1))
+        rows = np.ascontiguousarray(W[:, :kc])
+        Wu[midx] = rows
+        cap = max(1, int(_cache._WROW_CACHE_MB * (1 << 20) / kc))
+        with _wrow_lock:
+            for mi, j in enumerate(missing):
+                _wrow_cache[(P.Kp, int(uniq[j]))] = rows[mi]
+            while len(_wrow_cache) > cap:
+                _wrow_cache.popitem(last=False)
+    return Wu
+
+
+def res_wrows(P: Params, isis: np.ndarray) -> np.ndarray | None:
+    """Canonical combination rows for repair ISIs: [n, res_kcols(P)] uint8,
+    row j satisfying  row_j . D_canonical = symbol(isis[j])
+    (nanorq_tpu.codec.cache.res_wrows).  None when the native factorization
+    is unavailable."""
+    st = _cache.canonical_state(P)
+    if st is None:
+        return None
+    uniq, inv = np.unique(np.asarray(isis, np.uint32), return_inverse=True)
+    return _wrows_unique(P, st, uniq)[inv]
+
+
+def res_wrows_flat(P: Params, isi_list: list) -> tuple | None:
+    """Stacked canonical rows for a batch of patterns: (W_all [sum nr, kc],
+    row_offs int64 [nb], nrs int64 [nb]) (nanorq_tpu.codec.cache.res_wrows_flat).
+    None when the native factorization is unavailable."""
+    st = _cache.canonical_state(P)
+    if st is None:
+        return None
+    nb = len(isi_list)
+    nrs = np.fromiter((i.size for i in isi_list), np.int64, nb)
+    flat = np.concatenate(isi_list).astype(np.uint32) if nb else np.zeros(0, np.uint32)
+    uniq, inv = np.unique(flat, return_inverse=True)
+    row_offs = np.zeros(nb, np.int64)
+    if nb > 1:
+        np.cumsum(nrs[:-1], out=row_offs[1:])
+    return _wrows_unique(P, st, uniq)[inv], row_offs, nrs
 
 
 def decoder_plan(P: Params, isis: np.ndarray, overhead: int):

@@ -19,6 +19,10 @@
 // rows' coefficients are staged per k-tile in shared memory as logs, with
 // zero coefficients flagged and skipped; every thread tests the same flag,
 // so the branch never diverges.
+// Grid z is a block axis: nb independent products M_b (x) X_b, each at its own
+// byte offset (strides sM, sX, sO), in one launch -- the batched residual
+// decode (the JAX package vmaps it, nanorq_tpu/ops/wpath.py _res_batch_jit).
+// A 2-D call is nb = 1.
 #include "common.cuh"
 
 namespace nrq {
@@ -58,13 +62,16 @@ __global__ void gf256_matmul_kernel(const uint8_t* __restrict__ M, int64_t m, in
                                     const V* __restrict__ X, int64_t lanes,
                                     const uint16_t* __restrict__ log_tab,
                                     const uint8_t* __restrict__ exp_tab, V* __restrict__ out,
-                                    int accumulate) {
+                                    int accumulate, int64_t sM, int64_t sX, int64_t sO) {
   constexpr int NB = sizeof(V);  // payload bytes per lane
   __shared__ uint16_t slog[256];
   __shared__ uint8_t sexp[1024];
   __shared__ uint16_t sm[GF256_RM][GF256_KT];
   for (int i = threadIdx.x; i < 256; i += blockDim.x) slog[i] = log_tab[i];
   for (int i = threadIdx.x; i < 1024; i += blockDim.x) sexp[i] = exp_tab[i];
+  M += blockIdx.z * sM;
+  X += blockIdx.z * sX;
+  out += blockIdx.z * sO;
 
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * GF256_RM;
   const int64_t col = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
@@ -110,31 +117,39 @@ __global__ void gf256_matmul_kernel(const uint8_t* __restrict__ M, int64_t m, in
 }
 
 template <typename V>
-static cudaError_t launch_gf256(const uint8_t* M, int64_t m, int64_t k, const void* X,
-                                int64_t lanes, const uint16_t* log_tab, const uint8_t* exp_tab,
-                                void* out, int accumulate, cudaStream_t stream) {
+static cudaError_t launch_gf256(int64_t nb, const uint8_t* M, int64_t m, int64_t k, int64_t sM,
+                                const void* X, int64_t lanes, int64_t sX,
+                                const uint16_t* log_tab, const uint8_t* exp_tab, void* out,
+                                int64_t sO, int accumulate, cudaStream_t stream) {
   const int bx = lane_threads(lanes);
   const int64_t gx = (m + GF256_RM - 1) / GF256_RM;
   const int64_t gy = (lanes + bx - 1) / bx;
-  if (gy > 65535 || gx > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  gf256_matmul_kernel<V><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)), bx, 0,
-                           stream>>>(M, m, k, static_cast<const V*>(X), lanes, log_tab,
-                                     exp_tab, static_cast<V*>(out), accumulate);
+  if (gy > 65535 || gx > 0x7fffffff || nb > 65535) return cudaErrorInvalidConfiguration;
+  gf256_matmul_kernel<V><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
+                                static_cast<unsigned>(nb)),
+                           bx, 0, stream>>>(M, m, k, static_cast<const V*>(X), lanes, log_tab,
+                                            exp_tab, static_cast<V*>(out), accumulate, sM,
+                                            sX / static_cast<int64_t>(sizeof(V)),
+                                            sO / static_cast<int64_t>(sizeof(V)));
   return cudaGetLastError();
 }
 
 }  // namespace nrq
 
-// M uint8 [m, k], X uint8 [k, t], out uint8 [m, t]; log_tab uint16 [256]
-// (log_tab[0] = 512), exp_tab uint8 [1024] (alpha^i below 510, zero above).
-extern "C" int nrq_gf256_matmul(const void* M, int64_t m, int64_t k, const void* X, int64_t t,
-                                const void* log_tab, const void* exp_tab, void* out,
-                                int accumulate, void* stream) {
+// nb blocks b of M uint8 [m, k] at M + b*sM, X uint8 [k, t] at X + b*sX and
+// out uint8 [m, t] at out + b*sO (strides in bytes; each matrix contiguous);
+// log_tab uint16 [256] (log_tab[0] = 512), exp_tab uint8 [1024] (alpha^i below
+// 510, zero above).
+extern "C" int nrq_gf256_matmul(int64_t nb, const void* M, int64_t m, int64_t k, int64_t sM,
+                                const void* X, int64_t t, int64_t sX, const void* log_tab,
+                                const void* exp_tab, void* out, int64_t sO, int accumulate,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* Mb = static_cast<const uint8_t*>(M);
   const uint16_t* lt = static_cast<const uint16_t*>(log_tab);
   const uint8_t* et = static_cast<const uint8_t*>(exp_tab);
-  if (t % 16 == 0 && nrq::aligned16(X) && nrq::aligned16(out))
-    return nrq::launch_gf256<uint4>(Mb, m, k, X, t / 16, lt, et, out, accumulate, s);
-  return nrq::launch_gf256<uint8_t>(Mb, m, k, X, t, lt, et, out, accumulate, s);
+  if (t % 16 == 0 && sX % 16 == 0 && sO % 16 == 0 && nrq::aligned16(X) && nrq::aligned16(out))
+    return nrq::launch_gf256<uint4>(nb, Mb, m, k, sM, X, t / 16, sX, lt, et, out, sO, accumulate,
+                                    s);
+  return nrq::launch_gf256<uint8_t>(nb, Mb, m, k, sM, X, t, sX, lt, et, out, sO, accumulate, s);
 }

@@ -6,6 +6,7 @@ These are re-exported so that callers of the port (scripts such as
 
 - object I/O and packet tags: `MemoryIO`, `make_tag`;
 - the native C++ solver probe: `native_available`;
+- the codec's counters and timers: `stats`;
 - RFC parameters and the encoder's precode schedule: `params_init`,
   `encoder_schedule`;
 - the oracle: `replay_numpy` (the structured replay in numpy) and
@@ -22,9 +23,10 @@ from nanorq_tpu.native import native_available
 from nanorq_tpu.precode.device_schedule import replay_structured_numpy as replay_numpy
 from nanorq_tpu.rfc.params import Params, params_init
 from nanorq_tpu.rfc.tuples import lt_indices
+from nanorq_tpu.utils import stats
 
 __all__ = ["MemoryIO", "encoder_schedule", "lt_numpy", "make_tag", "native_available",
-           "params_init", "replay_numpy"]
+           "params_init", "replay_numpy", "stats"]
 
 
 def lt_numpy(C: np.ndarray, isis: np.ndarray, P: Params) -> np.ndarray:

@@ -64,8 +64,12 @@ def _bind(lib) -> None:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.nrq_gather_xor.argtypes = [vp, i64, i64, vp, i64, i64, vp, i32, vp, vp]
     lib.nrq_gf2_matmul.argtypes = [vp, i64, i64, i64, vp, i64, vp, i32, vp]
-    lib.nrq_gf256_matmul.argtypes = [vp, i64, i64, vp, i64, vp, vp, vp, i32, vp]
-    for fn in (lib.nrq_gather_xor, lib.nrq_gf2_matmul, lib.nrq_gf256_matmul):
+    lib.nrq_gf256_matmul.argtypes = [i64, vp, i64, i64, i64, vp, i64, i64, vp, vp, vp, i64, i32, vp]
+    lib.nrq_gather_v1.argtypes = [vp, i64, i64, vp, i64, i64, i32, i32, vp, vp, vp]
+    lib.nrq_gather_v2.argtypes = [vp, i64, i64, vp, i64, i64, vp, i32, i32, vp, vp, vp, vp]
+    lib.nrq_gather_db.argtypes = [vp, i64, i64, vp, i64, i64, i32, vp, vp, vp]
+    for fn in (lib.nrq_gather_xor, lib.nrq_gf2_matmul, lib.nrq_gf256_matmul, lib.nrq_gather_v1,
+               lib.nrq_gather_v2, lib.nrq_gather_db):
         fn.restype = ctypes.c_int
 
 

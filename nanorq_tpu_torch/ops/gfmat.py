@@ -89,10 +89,29 @@ def gf256_matmul(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return gf256_matmul_bits(companion_bits(M), X)
 
 
+def gf256_matmul_batch(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """nb independent GF(256) products: M [nb, m, k], X [nb, k, t] -> [nb, m, t]."""
+    out = X.new_zeros(M.shape[0], M.shape[1], X.shape[2])
+    for j in range(M.shape[0]):
+        out[j] = gf256_matmul(M[j], X[j])
+    return out
+
+
 def xor_reduce_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i] = XOR_k src[idx[i,k]]: src [S, t], idx [n, w] -> [n, t]."""
     idx = idx.to(torch.int64)
     out = src[idx[:, 0]]
     for j in range(1, idx.shape[1]):
         out ^= src[idx[:, j]]
+    return out
+
+
+def xor_reduce_gather_skip(src: torch.Tensor, idx: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """out[i] = XOR over k with idx[i,k] != sentinel of src[idx[i,k]]: a
+    sentinel slot reads as zero whatever src[sentinel] holds."""
+    idx = idx.to(torch.int64)
+    out = src.new_zeros(idx.shape[0], src.shape[1])
+    for j in range(idx.shape[1]):
+        col = idx[:, j]
+        out ^= src[col] * (col != sentinel).to(src.dtype)[:, None]
     return out

@@ -1,4 +1,5 @@
-"""Wrappers of the three payload kernels (`csrc/*.cu`).
+"""Wrappers of the payload kernels (`csrc/*.cu`): K1-K3 and the three gather
+probes (`csrc/gather_probe.cu`).
 
 Each wrapper checks what it is given and raises on anything its kernel does
 not take.  On CPU tensors it runs the plain torch version in `ops/gfmat.py`;
@@ -6,7 +7,8 @@ on CUDA tensors it launches the kernel on the current stream, or raises --
 there is no fallback.  `LAUNCHES[name]` counts kernel launches (CUDA only),
 so a run can show that its main path went through the kernels.  An index
 that gather_xor cannot take raises on the CPU; on CUDA the kernel sets a
-device flag that `take_index_errors` reads.
+device flag that `take_index_errors` reads; likewise a wrong host count
+given to gather_v2 (`take_count_errors`).
 
 Every wrapper takes an optional `out`: when given, the result is XORed into
 it in place (the replay accumulates gathers and products into row blocks it
@@ -19,7 +21,8 @@ import torch
 from nanorq_tpu.gf256.tables import OCT_EXP, OCT_LOG
 from nanorq_tpu_torch.ops import _build, gfmat
 
-LAUNCHES = {"gather_xor": 0, "gf2_matmul": 0, "gf256_matmul": 0}
+LAUNCHES = {"gather_xor": 0, "gf2_matmul": 0, "gf256_matmul": 0,
+            "gather_v1": 0, "gather_v2": 0, "gather_db": 0}
 
 
 def reset_launches() -> None:
@@ -32,9 +35,9 @@ def _need(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _bytes2d(x: torch.Tensor, name: str) -> None:
-    _need(isinstance(x, torch.Tensor) and x.dtype == torch.uint8 and x.dim() == 2,
-          f"{name}: expected a 2-D uint8 tensor, got {getattr(x, 'dtype', type(x))} "
+def _bytes(x: torch.Tensor, name: str, dim: int = 2) -> None:
+    _need(isinstance(x, torch.Tensor) and x.dtype == torch.uint8 and x.dim() == dim,
+          f"{name}: expected a {dim}-D uint8 tensor, got {getattr(x, 'dtype', type(x))} "
           f"{tuple(getattr(x, 'shape', ()))}")
     _need(x.is_contiguous(), f"{name}: must be contiguous")
 
@@ -44,7 +47,7 @@ def _out(out, shape, *inputs: torch.Tensor):
     bytes with an input (the kernels read and write through __restrict__)."""
     if out is None:
         return None
-    _bytes2d(out, "out")
+    _bytes(out, "out", len(shape))
     _need(tuple(out.shape) == tuple(shape), f"out: shape {tuple(out.shape)} != {tuple(shape)}")
     o0 = out.data_ptr()
     o1 = o0 + out.numel()
@@ -82,13 +85,14 @@ def _device_kind(*xs: torch.Tensor) -> str:
     return dev.type
 
 
-_INDEX_ERR: dict = {}  # CUDA device -> int32 [1], set by K1 on an index outside [0, S)
+# CUDA device -> int32 [1] device flag, set by a gather on an index outside
+# [0, S) (_INDEX_ERR), or by gather_v2 given a wrong host count (_COUNT_ERR)
+_INDEX_ERR: dict = {}
+_COUNT_ERR: dict = {}
 
 
-def take_index_errors(device: torch.device) -> bool:
-    """Whether a gather_xor launch on the CUDA `device` met an index outside
-    [0, S) since the last call, and clear the flag.  Waits for the device."""
-    flag = _INDEX_ERR.get(torch.device(device))
+def _take(flags: dict, device) -> bool:
+    flag = flags.get(torch.device(device))
     if flag is None:
         return False
     bad = bool(flag.item())
@@ -96,10 +100,22 @@ def take_index_errors(device: torch.device) -> bool:
     return bad
 
 
-def _index_flag(dev: torch.device) -> torch.Tensor:
-    flag = _INDEX_ERR.get(dev)
+def take_index_errors(device: torch.device) -> bool:
+    """Whether a gather launch on the CUDA `device` met an index outside
+    [0, S) since the last call, and clear the flag.  Waits for the device."""
+    return _take(_INDEX_ERR, device)
+
+
+def take_count_errors(device: torch.device) -> bool:
+    """Whether a gather_v2 launch on the CUDA `device` was given a count that
+    differs from the device's own since the last call, and clear the flag."""
+    return _take(_COUNT_ERR, device)
+
+
+def _flag(flags: dict, dev: torch.device) -> torch.Tensor:
+    flag = flags.get(dev)
     if flag is None:
-        flag = _INDEX_ERR[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+        flag = flags[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
     return flag
 
 
@@ -112,7 +128,7 @@ def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = 
     kernel flags it on the device, and the wrapper raises when `check` is
     set (which waits for the kernel) -- else the flag stays set for
     `take_index_errors`."""
-    _bytes2d(src, "src")
+    _bytes(src, "src")
     _need(idx.dtype == torch.int32 and idx.dim() == 2 and idx.is_contiguous(),
           f"idx: expected a contiguous 2-D int32 tensor, got {idx.dtype} {tuple(idx.shape)}")
     S, t = src.shape
@@ -130,7 +146,7 @@ def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = 
         lib = _build.load()
         with torch.cuda.device(src.device):
             _launch("gather_xor", lib.nrq_gather_xor, src.data_ptr(), S, t, idx.data_ptr(), n, w,
-                    res.data_ptr(), int(acc), _index_flag(src.device).data_ptr(), _stream(src.device))
+                    res.data_ptr(), int(acc), _flag(_INDEX_ERR, src.device).data_ptr(), _stream(src.device))
         if check and take_index_errors(src.device):
             raise IndexError(f"gather_xor: an index lies outside [0, {S})")
     return res
@@ -139,8 +155,8 @@ def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = 
 def gf2_matmul(bits: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """K2: out[r] = XOR_{c: bit(r,c)} X[c];  bits uint8 [m, >=ceil(k/8)] packed
     little-endian (bit c of row r = bits[r, c//8] >> (c%8) & 1), X uint8 [k, t]."""
-    _bytes2d(bits, "bits")
-    _bytes2d(X, "X")
+    _bytes(bits, "bits")
+    _bytes(X, "X")
     m, pitch = bits.shape
     k, t = X.shape
     _need(pitch * 8 >= k, f"bits: {pitch} bytes per row cannot hold k={k} columns")
@@ -172,21 +188,138 @@ def _gf_tables(dev: torch.device):
 
 
 def gf256_matmul(M: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
-    """K3: out[r] = XOR_c M[r,c] (x) X[c] over GF(256);  M uint8 [m, k], X uint8 [k, t]."""
-    _bytes2d(M, "M")
-    _bytes2d(X, "X")
-    m, k = M.shape
-    _need(X.shape[0] == k, f"X: {X.shape[0]} rows for a {k}-column M")
-    t = X.shape[1]
-    out = _out(out, (m, t), M, X)
+    """K3: out[r] = XOR_c M[r,c] (x) X[c] over GF(256);  M uint8 [m, k], X uint8 [k, t].
+
+    Batched: M [nb, m, k] and X [nb, k, t] -> [nb, m, t], the nb products in
+    one launch (the kernel's grid z is the block)."""
+    _need(isinstance(M, torch.Tensor) and M.dim() in (2, 3), "M: expected a 2-D or 3-D tensor")
+    dim = M.dim()
+    _bytes(M, "M", dim)
+    _bytes(X, "X", dim)
+    nb = M.shape[0] if dim == 3 else 1
+    m, k = M.shape[-2:]
+    _need(X.shape[-2] == k, f"X: {X.shape[-2]} rows for a {k}-column M")
+    _need(dim == 2 or X.shape[0] == nb, f"X: {X.shape[0]} blocks for {nb} blocks of M")
+    t = X.shape[-1]
+    shape = (nb, m, t) if dim == 3 else (m, t)
+    out = _out(out, shape, M, X)
     if _device_kind(M, X) == "cpu":
-        return _plain(gfmat.gf256_matmul(M, X), out)
+        return _plain(gfmat.gf256_matmul_batch(M, X) if dim == 3 else gfmat.gf256_matmul(M, X), out)
     acc = out is not None
-    res = out if acc else torch.empty((m, t), dtype=torch.uint8, device=X.device)
-    if m and t:
+    res = out if acc else torch.empty(shape, dtype=torch.uint8, device=X.device)
+    if nb and m and t:
         lib = _build.load()
         log, exp = _gf_tables(X.device)
         with torch.cuda.device(X.device):
-            _launch("gf256_matmul", lib.nrq_gf256_matmul, M.data_ptr(), m, k, X.data_ptr(), t,
-                    log.data_ptr(), exp.data_ptr(), res.data_ptr(), int(acc), _stream(X.device))
+            _launch("gf256_matmul", lib.nrq_gf256_matmul, nb, M.data_ptr(), m, k, m * k, X.data_ptr(), t,
+                    k * t, log.data_ptr(), exp.data_ptr(), res.data_ptr(), m * t, int(acc),
+                    _stream(X.device))
     return res
+
+
+# --- gather probes (csrc/gather_probe.cu) -------------------------------------
+
+PROBE_R = 8  # output rows per thread block, the default of every probe wrapper
+_PROBE_MAX_R = 32
+_PROBE_MAX_SLOTS = 1024  # R * w: row tiles staged per block
+
+
+def probe_counts(idx: torch.Tensor, sentinel: int, R: int = PROBE_R) -> torch.Tensor:
+    """gather_v2's host count: int32 [ceil(n/R)], the slots of each block of R
+    rows whose index is not `sentinel` (the probe's cnt)."""
+    n = idx.shape[0]
+    per_row = (idx != sentinel).sum(1, dtype=torch.int32)
+    pad = -n % R
+    if pad:
+        per_row = torch.cat([per_row, per_row.new_zeros(pad)])
+    return per_row.reshape(-1, R).sum(1, dtype=torch.int32)
+
+
+def _probe_args(name: str, src: torch.Tensor, idx: torch.Tensor, R: int):
+    """Check what every probe kernel needs; (S, t, n, w, device kind)."""
+    _bytes(src, "src")
+    _need(idx.dtype == torch.int32 and idx.dim() == 2 and idx.is_contiguous(),
+          f"idx: expected a contiguous 2-D int32 tensor, got {idx.dtype} {tuple(idx.shape)}")
+    S, t = src.shape
+    n, w = idx.shape
+    _need(t > 0 and t % 16 == 0,
+          f"{name}: t={t} is not a positive multiple of 16 (its bulk copies move 16-byte units; "
+          "gather_xor takes any width)")
+    _need(w >= 1, f"{name}: w={w}, needs at least one index per row")
+    _need(1 <= R <= _PROBE_MAX_R and R * w <= _PROBE_MAX_SLOTS,
+          f"{name}: R={R}, w={w} outside 1 <= R <= {_PROBE_MAX_R}, R*w <= {_PROBE_MAX_SLOTS}")
+    kind = _device_kind(src, idx)
+    _need(src.data_ptr() % 16 == 0, f"{name}: src is not 16-byte aligned")
+    if kind == "cpu" and n and (int(idx.min()) < 0 or int(idx.max()) >= S):
+        raise IndexError(f"{name}: an index lies outside [0, {S})")
+    return S, t, n, w, kind
+
+
+def _probe_launch(name: str, fn, src: torch.Tensor, res: torch.Tensor, *args, check: bool):
+    """Launch fn(*args, stream) unless `res` has no rows; in the checked mode
+    raise on a flag the launch set."""
+    if res.shape[0]:
+        with torch.cuda.device(src.device):
+            _launch(name, fn, *args, _stream(src.device))
+        if check and take_index_errors(src.device):
+            raise IndexError(f"{name}: an index lies outside [0, {src.shape[0]})")
+        if check and name == "gather_v2" and take_count_errors(src.device):
+            raise ValueError("gather_v2: cnt differs from the device's count of non-sentinel slots")
+    return res
+
+
+def gather_v1(src: torch.Tensor, idx: torch.Tensor, mode: int = 2, *, R: int = PROBE_R,
+              check: bool = False) -> torch.Tensor:
+    """Probe P1, K1's function through shared memory: out[i] = XOR_k src[idx[i, k]].
+
+    src uint8 [S, t] with t % 16 == 0, idx int32 [n, w].  `mode` picks how the
+    block awaits its copies: 0 one mbarrier wait per copy, 1 one wait counted
+    in arrivals (cp.async), 2 one wait counted in bytes (bulk copies).
+    Indices outside [0, S) raise as in gather_xor."""
+    _need(mode in (0, 1, 2), f"gather_v1: mode {mode} is not 0, 1 or 2")
+    S, t, n, w, kind = _probe_args("gather_v1", src, idx, R)
+    if kind == "cpu":
+        return gfmat.xor_reduce_gather(src, idx)
+    res = torch.empty((n, t), dtype=torch.uint8, device=src.device)
+    return _probe_launch("gather_v1", _build.load().nrq_gather_v1, src, res, src.data_ptr(), S, t,
+                         idx.data_ptr(), n, w, mode, R, res.data_ptr(),
+                         _flag(_INDEX_ERR, src.device).data_ptr(), check=check)
+
+
+def gather_v2(src: torch.Tensor, idx: torch.Tensor, cnt: torch.Tensor, sentinel: int, *,
+              R: int = PROBE_R, check: bool = False) -> torch.Tensor:
+    """Probe P2: out[i] = XOR over the slots k with idx[i, k] != sentinel of
+    src[idx[i, k]]; a sentinel slot is zero whatever src[sentinel] holds.
+
+    cnt int32 [ceil(n/R)] is the host's count of non-sentinel slots per block
+    of R rows (`probe_counts`).  A wrong count raises ValueError on the CPU;
+    on CUDA the kernel waits on its own count and sets the flag
+    `take_count_errors` reads (raised at once when `check` is set)."""
+    S, t, n, w, kind = _probe_args("gather_v2", src, idx, R)
+    _need(0 <= sentinel < S, f"gather_v2: sentinel {sentinel} outside [0, {S})")
+    nblk = -(-n // R)
+    _need(cnt.dtype == torch.int32 and tuple(cnt.shape) == (nblk,) and cnt.device == src.device,
+          f"cnt: expected int32 [{nblk}] on {src.device}, got {cnt.dtype} {tuple(cnt.shape)} on {cnt.device}")
+    if kind == "cpu":
+        if not torch.equal(cnt, probe_counts(idx, sentinel, R)):
+            raise ValueError("gather_v2: cnt differs from the count of non-sentinel slots")
+        return gfmat.xor_reduce_gather_skip(src, idx, sentinel)
+    res = torch.empty((n, t), dtype=torch.uint8, device=src.device)
+    return _probe_launch("gather_v2", _build.load().nrq_gather_v2, src, res, src.data_ptr(), S, t,
+                         idx.data_ptr(), n, w, cnt.data_ptr(), sentinel, R, res.data_ptr(),
+                         _flag(_INDEX_ERR, src.device).data_ptr(),
+                         _flag(_COUNT_ERR, src.device).data_ptr(), check=check)
+
+
+def gather_db(src: torch.Tensor, idx: torch.Tensor, *, R: int = PROBE_R,
+              check: bool = False) -> torch.Tensor:
+    """Probe P3: gather_v1's function, double-buffered -- each thread block
+    owns one t-tile and sweeps row blocks through two shared-memory stages,
+    issuing one step's copies before it reduces the step before."""
+    S, t, n, w, kind = _probe_args("gather_db", src, idx, R)
+    if kind == "cpu":
+        return gfmat.xor_reduce_gather(src, idx)
+    res = torch.empty((n, t), dtype=torch.uint8, device=src.device)
+    return _probe_launch("gather_db", _build.load().nrq_gather_db, src, res, src.data_ptr(), S, t,
+                         idx.data_ptr(), n, w, R, res.data_ptr(),
+                         _flag(_INDEX_ERR, src.device).data_ptr(), check=check)

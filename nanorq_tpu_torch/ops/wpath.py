@@ -8,6 +8,8 @@ on the host from the solver's factorization.  The device work is one matmul:
   index, then K2 multiplies by the packed bits (`_w_gf2_jit` in JAX);
 - GF(256) (HDPC pivots taken): K3 on the byte matrix (`_w_matmul_jit`).
 
+The residual arm's product (`res_apply_batch`) is two batched K3 launches.
+
 The host W constructors (`w_rows`, `w_rows_gf2`) are numpy over the native
 solver's ctypes interface.  In the JAX package they sit in a module that
 imports jax at its top, so the port carries its own copies, line for line
@@ -214,11 +216,27 @@ def w_apply_gf2_batch(bits: torch.Tensor, rows: torch.Tensor, D: torch.Tensor) -
 
 
 def w_apply_gf256_batch(W: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
-    """Stacked GF(256) W apply: W [nb, m, k], D [nb, M_pad, t] -> [nb, m, t]."""
-    out = D.new_zeros(W.shape[0], W.shape[1], D.shape[2])
-    for j in range(W.shape[0]):
-        gf256_matmul(W[j], D[j, : W.shape[2]], out=out[j])
-    return out
+    """Stacked GF(256) W apply: W [nb, m, k], D [nb, M_pad, t] -> [nb, m, t],
+    one batched K3 launch."""
+    return gf256_matmul(W, D[:, : W.shape[2]].contiguous())
+
+
+def res_apply_batch(W: torch.Tensor, D0: torch.Tensor, R: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The residual decode product X = R (x) (y ^ W (x) D0), batched over blocks
+    (counterpart of nanorq_tpu.ops.wpath._res_batch_jit).
+
+    W [nb, nr, k] canonical combination rows of the received repair symbols,
+    D0 [nb, k, t] the received payloads (gap rows zero), R [nb, g, nr] the
+    host's left inverses of G = W[:, gaps], y [nb, nr, t] the repair payloads
+    -> X [nb, g, t], rows [:g_b] of block b its gap payloads.  Zero-padded
+    rows and columns are exact no-ops.  Two batched K3 launches: the first
+    XORs W (x) D0 into a copy of y through K3's out=, the second multiplies
+    that by R.  JAX expands W and R to companion bits on the device
+    (`_companion_dev`) because its kernel takes bit planes; K3 takes the byte
+    matrices as they are, so no companion step runs here."""
+    yhat = y.clone()
+    gf256_matmul(W, D0, out=yhat)
+    return gf256_matmul(R, yhat)
 
 
 def w_stack_gf2(plans: list) -> tuple[np.ndarray, np.ndarray]:

@@ -166,7 +166,7 @@ def test_decode_equals_jax_decoder():
     assert np.array_equal(outs[0], outs[1]) and np.array_equal(outs[1], data)
 
 
-@pytest.mark.parametrize("kw", [{"backend": "res"}, {"backend": "auto"}, {"backend": "res_host"}, {"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_unported_arms_raise(kw):
     rng, data = _object(7)
     dec, io, _ = _lossy_decoder(data, rng)
@@ -207,4 +207,4 @@ def test_round_trip_on_card(case, monkeypatch):
     assert np.array_equal(Encoder(data.size, T, Al=8, Z=Z, device="cuda").encode_batch(1, rep, MemoryIO(data)), want)
     assert dec.repair_all(io, backend="device")
     assert np.array_equal(out, data)
-    assert all(v > 0 for v in kernels.LAUNCHES.values())
+    assert all(kernels.LAUNCHES[n] > 0 for n in ("gather_xor", "gf2_matmul", "gf256_matmul"))

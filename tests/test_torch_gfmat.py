@@ -126,8 +126,15 @@ def test_gather_xor_rejects_out_of_range_index(bad):
 
 def test_cpu_calls_do_not_count_launches():
     kernels.reset_launches()
-    kernels.gather_xor(torch.zeros((2, 4), dtype=torch.uint8), torch.zeros((1, 1), dtype=torch.int32))
-    assert kernels.LAUNCHES == {"gather_xor": 0, "gf2_matmul": 0, "gf256_matmul": 0}
+    src, idx = torch.zeros((2, 16), dtype=torch.uint8), torch.zeros((1, 1), dtype=torch.int32)
+    kernels.gather_xor(src, idx)
+    kernels.gather_v1(src, idx)
+    kernels.gather_v2(src, idx, kernels.probe_counts(idx, 1), 1)
+    kernels.gather_db(src, idx)
+    kernels.gf256_matmul(src[None, :, :2].contiguous(), src[None])
+    assert set(kernels.LAUNCHES) == {"gather_xor", "gf2_matmul", "gf256_matmul",
+                                     "gather_v1", "gather_v2", "gather_db"}
+    assert not any(kernels.LAUNCHES.values())
 
 
 @pytest.mark.cuda
@@ -152,7 +159,7 @@ def test_kernels_match_plain_on_card(t):
         M = u8(m // 4 + 1, k)
         assert torch.equal(kernels.gf256_matmul(M, X), gfmat.gf256_matmul(M, X))
     torch.cuda.synchronize()
-    assert all(kernels.LAUNCHES[n] > before[n] for n in before)
+    assert all(kernels.LAUNCHES[n] > before[n] for n in ("gather_xor", "gf2_matmul", "gf256_matmul"))
     assert not kernels.take_index_errors(dev)
     for bad in (500, -1):  # the kernel flags an index outside the source
         bad_idx = idx.clone()

@@ -15,31 +15,48 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 _SCRIPT = r"""
+import pathlib
 import sys
+import tempfile
 import numpy as np
 from nanorq_tpu_torch import entry
+from nanorq_tpu_torch.cli import decode as cli_decode, encode as cli_encode
 from nanorq_tpu_torch.codec import batch
+from nanorq_tpu_torch.codec import cache
 from nanorq_tpu_torch.codec.api import Decoder, Encoder
-from nanorq_tpu_torch.host import MemoryIO, make_tag
+from nanorq_tpu_torch.host import MemoryIO, make_tag, native_available
+from nanorq_tpu_torch.tools import gather_probe
 
 K, T, Z = 100, 32, 2
 rng = np.random.default_rng(0)
 data = rng.integers(0, 256, K * T * Z, dtype=np.uint8)
 enc = Encoder(data.size, T, Al=8, Z=Z, device="cpu")
 reps = batch.repair_symbols(batch.load_object(enc, MemoryIO(data)), 20, "cpu")
-dec = Decoder(enc.oti_common(), enc.oti_scheme_specific(), device="cpu")
-out = np.zeros(data.size, np.uint8)
-io = MemoryIO(out)
+losses = []
 for sbn in range(Z):
     gaps = np.nonzero(rng.random(K) < 0.06)[0]
-    keep = np.setdiff1d(np.arange(K), gaps)
-    rep = np.arange(K, K + gaps.size + 5)
-    dec.add_symbols(data.reshape(Z * K, T)[sbn * K + keep], [make_tag(sbn, int(e)) for e in keep], io)
-    dec.add_symbols(reps[sbn][: rep.size], [make_tag(sbn, int(e)) for e in rep], io)
-assert dec.repair_all(io, backend="device")
-assert np.array_equal(out, data)
+    losses.append((np.setdiff1d(np.arange(K), gaps), np.arange(K, K + gaps.size + 5)))
+# every arm, the residual ones (canonical w-rows) first and on cold memos
+backends = ["res", "res_host", "auto", "device"] if native_available() else ["device"]
+for backend in backends:
+    cache.clear_decoder_cache()
+    dec = Decoder(enc.oti_common(), enc.oti_scheme_specific(), device="cpu")
+    out = np.zeros(data.size, np.uint8)
+    io = MemoryIO(out)
+    for sbn, (keep, rep) in enumerate(losses):
+        dec.add_symbols(data.reshape(Z * K, T)[sbn * K + keep], [make_tag(sbn, int(e)) for e in keep], io)
+        dec.add_symbols(reps[sbn][: rep.size], [make_tag(sbn, int(e)) for e in rep], io)
+    assert dec.repair_all(io, backend=backend), backend
+    assert np.array_equal(out, data), backend
 fn, args = entry.entry("cpu")
 assert fn(*args).shape[0] >= 1002
+with tempfile.TemporaryDirectory() as d:
+    src, rq, dst = (pathlib.Path(d) / f for f in ("in.bin", "data.rq", "out.bin"))
+    src.write_bytes(data[:5000].tobytes())
+    assert cli_encode.main([str(src), "256", "-o", str(rq), "--seed", "1", "--device", "cpu"]) == 0
+    assert cli_decode.main([str(dst), "-i", str(rq), "--device", "cpu"]) == 0
+    assert dst.read_bytes() == src.read_bytes()
+assert gather_probe.run_shape("v2", (301, 37, 5, 64, 0.3, "tiny"), rng, "cpu")["exact"]
 print("jax" in sys.modules)
 """
 
