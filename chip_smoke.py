@@ -9,13 +9,18 @@ Phases, each printing its own lines and its seconds:
 2. kernel parity: each kernel against its plain torch version on the same
    inputs, bit-exact, at the shapes the K=1000 main path gives it (t = 1280
    and t = 200*1280) and at a ragged shape; kernel and plain times (the
-   three gather probes at K1's shapes, with K1's time beside theirs; K3
-   batched at the residual arm's shape); an index outside the source makes
+   three gather probes at K1's shapes, with K1's time beside theirs), each
+   gather's bytes bound and, at width 1, torch.index_select's time (K1's
+   library_ms); K2 and K3 in every form through tools/matmul_forms.py (the
+   encoder's own matrices, the single and batched W decodes -- nb = 200 --
+   and the residual chunk, then the edge shapes: ragged k and t, m < 16,
+   forced k splits), with their bounds; an index outside the source makes
    gather_xor raise, a ragged width makes the probes raise;
 3. encode: an object of Z=200 blocks x K=1000 x T=1280 through the port's
    Encoder and codec.batch (generate + 200 repair symbols per block);
 4. decode: 6% source loss + 5% repair overhead per block, recovered by
-   Decoder.repair_all(backend="device");
+   Decoder.repair_all(backend="device"); the warm run must take one K1 and
+   one K2 launch per stacked batch of blocks;
 5. checks and times: the systematic property on every block, one block
    against the numpy oracle (nanorq_tpu_torch.host), the decoded bytes, the
    kernel launch counts of the main path (phases 3-4), no out-of-range
@@ -54,7 +59,6 @@ K, T, Z, N_REPAIR = 1000, 1280, 200, 200  # 256 MB: Z blocks of K symbols of T b
 SEED = 0  # object bytes, parity inputs and loss patterns all derive from it
 WIDE = Z * T  # the payload width of the whole object
 CLI_BYTES = 8 << 20
-RES_CHUNK = (32, 110, 1024)  # the residual arm's K3 batch: blocks, repair rows, columns
 # kernel -> (its source, the TPU kernel it replaces)
 PORTED = {
     "gather_xor": ("nanorq_tpu_torch/csrc/gather_xor.cu", "nanorq_tpu/ops/pallas_kernels.py:290"),
@@ -100,6 +104,40 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int16) - b.to(torch.int16)).abs().max()) if a.numel() else 0
 
 
+HBM_BPS = 3.35e12  # the H100 SXM data sheet's memory rate
+
+
+def _gather_bytes(src: torch.Tensor, idx: torch.Tensor) -> int:
+    """Bytes a gather must move: each distinct source row read once, each
+    output row written once, the indices read once."""
+    return int(torch.unique(idx).numel()) * src.shape[1] + idx.shape[0] * src.shape[1] + idx.numel() * 4
+
+
+def rows_k1(rows: list, label: str) -> str:
+    """The K1 label a probe row of `label` was timed beside (its own for K1)."""
+    return next((k1 or lab) for lab, _, _, _, k1 in rows if lab == label)
+
+
+def phase_matmul(dev) -> dict:
+    """K2 and K3 in every form against the plain versions at the main path's
+    shapes and at the edge shapes (tools/matmul_forms.py): one line each;
+    the report holds, per kernel, the form its rule picks at the heaviest
+    main-path shape (t = 200*T)."""
+    from nanorq_tpu_torch.tools import matmul_forms
+
+    report = {}
+    for name, spec in {**matmul_forms.SHAPES, **matmul_forms.EDGES}.items():
+        line = matmul_forms.measure(name, spec, dev, 20, timed=name in matmul_forms.SHAPES)
+        _say("matmul", **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in line.items()})
+        kern = "gf2_matmul" if line["kind"] == "gf2" else "gf256_matmul"
+        rep = report.setdefault(kern, {"max_abs_err": 0, "ms": 0.0})
+        if line["t"] == WIDE and "_full" not in name and line["ms"] >= rep["ms"]:  # uncut: not the main path
+            rep.update(ms=line["ms"], plain_ms=line["plain_ms"], shape=f"{name} ({line['rule']})",
+                       bound_ms=line["bound_ms"], bound_by=line["bound_by"], library_ms=None)
+        torch.cuda.empty_cache()
+    return report
+
+
 def phase_parity(dev, rng, P) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     from nanorq_tpu_torch.host import encoder_schedule
@@ -114,18 +152,14 @@ def phase_parity(dev, rng, P) -> dict:
     def u8(*shape):
         return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
 
-    def packed(m, k):
-        return torch.from_numpy(np.packbits(rng.integers(0, 2, (m, k), dtype=np.uint8),
-                                            axis=1, bitorder="little")).to(dev)
-
     def zero_last(x):
         x[-1] = 0  # the sentinel row the codec's indices point at
         return x
 
     seg = next(s for s in arr["tri"] if s["ranges"])
     widest = max(lt.classes, key=lambda c: c.numel())
-    kq = 1024
     cases = {n: [] for n in PORTED}  # name -> [(label, main-path shape?, kernel fn, plain fn, K1 label)]
+    bounds, library = {}, {}  # gather label -> (bound ms, "bytes"); K1 label -> one torch call
     for t in (T, WIDE):
         D = zero_last(u8(ds.M_pad, t))
         z = zero_last(u8(ds.Lpad + ds.u_pad, t))
@@ -138,6 +172,9 @@ def phase_parity(dev, rng, P) -> dict:
             (f"lt_class C_ext[{ds.L + 1},{t}] idx{tuple(widest.shape)}", C_ext, widest),
         ]
         for label, src, ix in g:
+            bounds[label] = (_gather_bytes(src, ix) / HBM_BPS * 1e3, "bytes")
+            if ix.shape[1] == 1:  # a width-1 gather is one torch.index_select
+                library[label] = lambda s=src, i=ix[:, 0]: torch.index_select(s, 0, i)
             main = t == WIDE
             plain = lambda s=src, i=ix: gfmat.xor_reduce_gather(s, i)  # noqa: E731
             cases["gather_xor"].append((label, main, lambda s=src, i=ix: kernels.gather_xor(s, i), plain, None))
@@ -150,26 +187,8 @@ def phase_parity(dev, rng, P) -> dict:
                                        lambda s=src, i=ix, c=cnt, x=sent: kernels.gather_v2(s, i, c, x),
                                        lambda s=src, i=ix, x=sent: gfmat.xor_reduce_gather_skip(s, i, x), label))
             cases["gather_db"].append((label, main, lambda s=src, i=ix: kernels.gather_db(s, i), plain, label))
-        for label, bits, X in [
-            (f"tinv[{ds.CB},{ds.CB}] X[{ds.CB},{t}]", seg["tinv"][0], u8(ds.CB, t)),
-            (f"wut[{ds.Lpad},{ds.u_pad}] X[{ds.u_pad},{t}]", arr["wut"], u8(ds.u_pad, t)),
-        ] + ([(f"W_dec[64,{kq}] X[{kq},{t}]", packed(64, kq), u8(kq, t))] if t == T else []):
-            k = X.shape[0]
-            cases["gf2_matmul"].append((label, t == WIDE, lambda b=bits, x=X: kernels.gf2_matmul(b, x),
-                                        lambda b=bits, x=X, k=k: gfmat.gf2_matmul(gfmat.unpack_bits(b)[:, :k], x),
-                                        None))
-        for label, M, X in [
-            (f"mhd{tuple(arr['mhd'].shape)} X[{ds.Lpad},{t}]", arr["mhd"], u8(ds.Lpad, t)),
-            (f"vinv{tuple(arr['vinv'].shape)} X[{ds.u_pad},{t}]", arr["vinv"], u8(ds.u_pad, t)),
-        ] + ([(f"W_dec256[64,{ds.M_pad}] X[{ds.M_pad},{t}]", u8(64, ds.M_pad), u8(ds.M_pad, t)),
-              ("res batched W[{0},{1},{2}] D0[{0},{2},{3}]".format(*RES_CHUNK, t), u8(*RES_CHUNK),
-               u8(RES_CHUNK[0], RES_CHUNK[2], t))]
-             if t == T else []):
-            plain = gfmat.gf256_matmul_batch if M.dim() == 3 else gfmat.gf256_matmul
-            cases["gf256_matmul"].append((label, t == WIDE, lambda m=M, x=X: kernels.gf256_matmul(m, x),
-                                          lambda m=M, x=X, f=plain: f(m, x), None))
-    # ragged: t not a multiple of 16, k not a multiple of 8
-    tr, kr = 1283, 203
+    # ragged: t not a multiple of 16 (K2/K3's ragged shapes: phase_matmul)
+    tr = 1283
     src = zero_last(u8(300, tr))
     ix = torch.from_numpy(rng.integers(0, 300, (100, 5)).astype(np.int32)).to(dev)
     cases["gather_xor"].append(("ragged src[300,1283] idx(100,5)", False,
@@ -194,17 +213,12 @@ def phase_parity(dev, rng, P) -> dict:
                 continue
             raise AssertionError(f"gather_xor took index {bad} of a 300-row source")
     _say("parity", kernel="gather_xor", out_of_range_index="IndexError")
-    bits, Xr = packed(50, kr), u8(kr, tr)
-    cases["gf2_matmul"].append((f"ragged bits[50,{kr}] X[{kr},{tr}]", False,
-                                lambda: kernels.gf2_matmul(bits, Xr),
-                                lambda: gfmat.gf2_matmul(gfmat.unpack_bits(bits)[:, :kr], Xr), None))
-    Mr = u8(20, kr)
-    cases["gf256_matmul"].append((f"ragged M[20,{kr}] X[{kr},{tr}]", False,
-                                  lambda: kernels.gf256_matmul(Mr, Xr), lambda: gfmat.gf256_matmul(Mr, Xr), None))
-
     report, k1_ms = {}, {}
     for name, rows in cases.items():
+        if not rows:  # K2 and K3: phase_matmul below
+            continue
         worst, main_ms, main_plain, main_shape = 0, 0.0, 0.0, ""
+        main_lib = None
         for label, main, kfn, pfn, k1 in rows:
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
@@ -214,15 +228,25 @@ def phase_parity(dev, rng, P) -> dict:
                 raise AssertionError(f"{name} {label}: kernel differs from plain, max_abs_err={err}")
             ms = _cuda_ms(kfn, 10 if main else 20)
             pms = _cuda_ms(pfn, 3 if main else 10)
+            extra = {}
             if name == "gather_xor":
                 k1_ms[label] = ms
-            extra = {} if k1 is None else {"k1_ms": f"{k1_ms[k1]:.4f}"}
+                if label in library:
+                    extra["library_ms"] = f"{_cuda_ms(library[label], 10 if main else 20):.4f}"
+            if k1 is not None:
+                extra["k1_ms"] = f"{k1_ms[k1]:.4f}"
+            bound = bounds.get(k1 or label)
+            if bound:
+                extra["bound_ms"] = f"{bound[0]:.4f}"
             _say("parity", kernel=name, shape=label.replace(" ", ""), exact=True,
                  ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", **extra)
             if main and ms >= main_ms:  # the heaviest main-path shape at t=200*T
                 main_ms, main_plain, main_shape = ms, pms, label
-        report[name] = {"max_abs_err": worst, "ms": main_ms, "plain_ms": main_plain,
-                        "shape": main_shape}
+                main_lib = float(extra["library_ms"]) if "library_ms" in extra else None
+        b_ms, b_by = bounds[rows_k1(rows, main_shape)]
+        report[name] = {"max_abs_err": worst, "ms": main_ms, "plain_ms": main_plain, "shape": main_shape,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": main_lib}
+    report.update(phase_matmul(dev))
     if kernels.take_index_errors(dev) or kernels.take_count_errors(dev):
         raise AssertionError("a parity launch flagged an index or a count")
     torch.cuda.synchronize()
@@ -307,12 +331,22 @@ def _decode_once(enc, data, reps, deliveries, dev, backend: str):
 
 def phase_decode(enc, data, reps, dev, deliveries):
     """repair_all(backend="device") at 6% loss + 5% overhead on every block,
-    cold (every pattern solved fresh) then warm (plans cached)."""
+    cold (every pattern solved fresh) then warm (plans cached).  The warm
+    run must stack its dense-W blocks: one K1 and one K2 launch per batch
+    of up to Decoder._BATCH_FLUSH blocks, not one pair per block."""
     from nanorq_tpu_torch.codec import cache as tcache
+    from nanorq_tpu_torch.codec.api import Decoder
+    from nanorq_tpu_torch.ops import kernels
 
     tcache.clear_decoder_cache()
     out_cold, cold_s, preps = _decode_once(enc, data, reps, deliveries, dev, "device")
+    before = dict(kernels.LAUNCHES)
     out_warm, warm_s, _ = _decode_once(enc, data, reps, deliveries, dev, "device")
+    warm = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+    batches = -(-Z // Decoder._BATCH_FLUSH)
+    _say("decode", warm_launches=json.dumps(warm), batches=batches)
+    if warm["gf2_matmul"] != batches or warm["gather_xor"] != batches:
+        raise AssertionError(f"warm device decode ran {warm}, expected {batches} K1 and K2 launches")
     kinds = {"gf2_w": 0, "gf256_w": 0, "structured": 0}
     for _gaps, isis, ov in preps:  # the plans decoder_plan cached for these patterns
         plan = tcache.decoder_plan(enc.P, isis, ov)
@@ -524,7 +558,8 @@ def main() -> None:
          "launches": (probe_launches if n in PROBES else main_launches)[n],
          "path": "probe" if n in PROBES else "encode+decode",
          "max_abs_err": report[n]["max_abs_err"], "ms": report[n]["ms"], "plain_ms": report[n]["plain_ms"],
-         "shape": report[n]["shape"]}
+         "bound_ms": report[n]["bound_ms"], "bound_by": report[n]["bound_by"],
+         "library_ms": report[n]["library_ms"], "shape": report[n]["shape"]}
         for n in PORTED]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

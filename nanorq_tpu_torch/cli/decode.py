@@ -15,11 +15,10 @@ import os
 import struct
 import sys
 
-from nanorq_tpu.codec.api import SYM_ERR
-from nanorq_tpu.io.ioctx import FileIO
-from nanorq_tpu.precode.device_schedule import load_layout_cache, save_layout_cache
-from nanorq_tpu_torch.codec.api import _NO_MESH, Decoder
+from nanorq_tpu_torch.codec.api import _NO_MESH, SYM_ERR, Decoder
 from nanorq_tpu_torch.device import resolve
+from nanorq_tpu_torch.io.ioctx import FileIO
+from nanorq_tpu_torch.precode.device_schedule import load_layout_cache, save_layout_cache
 
 
 def main(argv=None) -> int:

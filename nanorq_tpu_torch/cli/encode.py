@@ -15,12 +15,12 @@ import random
 import struct
 import sys
 
-from nanorq_tpu.codec.cache import warm_encoder_cache
-from nanorq_tpu.codec.oti import make_tag
-from nanorq_tpu.io.ioctx import FileIO
 from nanorq_tpu_torch.codec.api import _NO_MESH, Encoder
 from nanorq_tpu_torch.codec.batch import generate, load_object, repair_symbols, source_symbol
+from nanorq_tpu_torch.codec.cache import warm_encoder_cache
+from nanorq_tpu_torch.codec.oti import make_tag
 from nanorq_tpu_torch.device import resolve
+from nanorq_tpu_torch.io.ioctx import FileIO
 
 
 def main(argv=None) -> int:

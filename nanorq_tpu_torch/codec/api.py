@@ -1,9 +1,11 @@
 """Encoder / Decoder of the port: `nanorq_tpu.codec.api` on torch tensors.
 
-The host logic (OTI, partitioning, symbol ingestion, gap tracking, the
-patched system and its solve) is inherited from the JAX package unchanged.
-These subclasses override every method that reached JAX, and run the device
-work on the explicit `device` they were built with:
+Functional parity with the reference API (include/nanorq.h): object
+lifecycle, OTI words, per-symbol and batched encode, symbol ingestion with
+ADDED/IGN/DUP/ERR statuses, gap tracking, block repair.  The host logic
+(OTI, partitioning, ingestion, gap tracking, the patched system and its
+solve) is the JAX package's, copied unchanged; every device call site runs
+the port's torch code on the explicit `device` the object was built with:
 
 - encode: the structured replay (ops/replay.py) and LT combine (ops/lt.py);
 - decode, per `backend` of `repair_all` (default: env NANORQ_DECODE_BACKEND,
@@ -24,21 +26,24 @@ item 10).
 """
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from nanorq_tpu.codec import api as _api
-from nanorq_tpu.codec import cache as _jcache
-from nanorq_tpu.codec.partition import symbol_ranges
-from nanorq_tpu.io.ioctx import IOContext
-from nanorq_tpu.native import host_residual_flat, native_available, res_rinv
-from nanorq_tpu.utils import stats
 from nanorq_tpu_torch.codec import cache as _cache
+from nanorq_tpu_torch.codec.oti import pack_oti_common, pack_oti_scheme, split_tag
+from nanorq_tpu_torch.codec.oti import unpack_oti_common, unpack_oti_scheme
+from nanorq_tpu_torch.codec.partition import Scheme, div_ceil, make_scheme, scheme_from_oti, symbol_ranges
 from nanorq_tpu_torch.device import resolve
+from nanorq_tpu_torch.io.ioctx import IOContext
+from nanorq_tpu_torch.native import host_repair_shared, host_residual_flat, native_available, res_rinv
 from nanorq_tpu_torch.ops import wpath
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
 from nanorq_tpu_torch.ops.replay import device_arrays, replay
+from nanorq_tpu_torch.rfc.params import Params, params_init
+from nanorq_tpu_torch.rfc.tables import K_MAX, MAX_TRANSFER, Z_MAX
+from nanorq_tpu_torch.utils import stats
 
 _NO_MESH = "mesh= is not ported yet (ROADMAP Queue 1 item 10, multi-GPU)"
 _NO_FACTOR = ('backend "res" needs the native solver\'s canonical factorization, '
@@ -48,6 +53,270 @@ BACKENDS = ("auto", "device", "host", "res", "res_host")
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+# symbol ingestion statuses (include/nanorq.h:10-13)
+SYM_ADDED = 0
+SYM_IGN = 1
+SYM_DUP = 2
+SYM_ERR = -1
+
+# shared all-zeros symbol rows (per T), read-only: padding/constraint rows of
+# the patched system point here in the host arm's zero-copy row-pointer map
+_ZERO_ROWS: dict[int, np.ndarray] = {}
+
+
+# K' at or below which the auto decode policy prefers the solve-free host
+# residual arm over the patched-system host solve for cold patterns
+# (measured crossover ~K'=250 on an AVX-512 host: res_host 8.6 vs host 6.8
+# at K=200, 6.3 vs 8.7 at K=320; see _repair_residual_host_batch)
+_RES_HOST_MAX = int(os.environ.get("NANORQ_RES_HOST_MAX", "256"))
+
+
+def _zero_row(T: int) -> np.ndarray:
+    z = _ZERO_ROWS.get(T)
+    if z is None:
+        z = _ZERO_ROWS.setdefault(T, np.zeros(T, np.uint8))
+    return z
+
+
+class _Block:
+    """Per-SBN working state (reference struct block_encoder, nanorq.c:40-47).
+
+    Source-ESI tracking is a bool array + count (the bitmask analog,
+    lib/bitmask.c) so batched ingest and gap queries are vectorized; repair
+    ESIs (sparse, unbounded) stay in a set.
+    """
+
+    __slots__ = ("K", "D", "C", "loaded", "got", "nsrc",
+                 "rep_esis", "rep_rows", "nrep", "rep_seen")
+
+    def __init__(self, K: int):
+        self.K = K
+        self.D: np.ndarray | None = None  # [M_pad, T] payload matrix
+        self.C = None  # device intermediate symbols [L, T]
+        self.loaded = False
+        self.got = np.zeros(K, bool)  # received source esis
+        self.nsrc = 0  # = got.sum(), tracked incrementally
+        # repair symbols live in ONE contiguous [cap, T] buffer (doubling
+        # growth) so repair-time fills and per-row address math vectorize
+        self.rep_esis = np.empty(8, np.int64)
+        self.rep_rows: np.ndarray | None = None
+        self.nrep = 0
+        self.rep_seen: set[int] = set()
+
+    def add_repair(self, esis: np.ndarray, payloads: np.ndarray):
+        """Append repair rows (esis int [n], payloads uint8 [n, T])."""
+        n = int(esis.size)
+        need = self.nrep + n
+        if self.rep_rows is None or need > self.rep_rows.shape[0]:
+            cap = max(8, 1 << (need - 1).bit_length())
+            rows = np.empty((cap, payloads.shape[1]), np.uint8)
+            if self.nrep:
+                rows[: self.nrep] = self.rep_rows[: self.nrep]
+            self.rep_rows = rows
+            if cap > self.rep_esis.size:
+                e = np.empty(cap, np.int64)
+                e[: self.nrep] = self.rep_esis[: self.nrep]
+                self.rep_esis = e
+        self.rep_esis[self.nrep : need] = esis
+        self.rep_rows[self.nrep : need] = payloads
+        self.nrep = need
+        self.rep_seen.update(int(x) for x in esis)
+
+    def reset(self):
+        self.D = None
+        self.C = None
+        self.loaded = False
+        self.got[:] = False
+        self.nsrc = 0
+        self.nrep = 0
+        self.rep_rows = None
+        self.rep_seen.clear()
+
+
+class _CodecBase:
+    scheme: Scheme
+    P: Params
+
+    def __init__(self):
+        self._blocks: dict[int, _Block] = {}
+
+    # --- introspection (nanorq.h parity) ---
+    def oti_common(self) -> int:
+        return pack_oti_common(self.scheme.F, self.scheme.T)
+
+    def oti_scheme_specific(self) -> int:
+        return pack_oti_scheme(self.scheme.Z, self.scheme.N, self.scheme.Al)
+
+    @property
+    def transfer_length(self) -> int:
+        return self.scheme.F
+
+    @property
+    def symbol_size(self) -> int:
+        return self.scheme.T
+
+    @property
+    def num_blocks(self) -> int:
+        return self.scheme.blocks
+
+    @property
+    def max_blocks(self) -> int:
+        return Z_MAX
+
+    def block_symbols(self, sbn: int) -> int:
+        return self.scheme.block_symbols(sbn)
+
+    def _block(self, sbn: int) -> _Block:
+        b = self._blocks.get(sbn)
+        if b is None:
+            b = _Block(self.block_symbols(sbn))
+            self._blocks[sbn] = b
+        return b
+
+    def cleanup(self, sbn: int) -> None:
+        self._blocks.pop(sbn, None)
+
+    def reset(self, sbn: int) -> None:
+        b = self._blocks.get(sbn)
+        if b is not None:
+            b.reset()
+
+    # --- shared I/O scatter/gather ---
+    def _read_symbol(self, io: IOContext, sbn: int, esi: int, K: int) -> np.ndarray:
+        out = np.zeros(self.scheme.T, np.uint8)
+        for off, length, col in symbol_ranges(self.scheme, sbn, esi, K):
+            data = io.read_at(off, length)
+            out[col : col + len(data)] = np.frombuffer(data, np.uint8)
+        return out
+
+    def _write_symbol(self, io: IOContext, sbn: int, esi: int, K: int, payload: np.ndarray) -> None:
+        for off, length, col in symbol_ranges(self.scheme, sbn, esi, K):
+            io.write_at(off, payload[col : col + length])
+
+    def _write_symbols_coalesced(self, io: IOContext, sbn: int, esis, K: int, payloads: np.ndarray) -> None:
+        """Write-through many symbols with adjacent byte ranges merged into
+        single io.write_at calls (in-order N=1 bursts collapse to one write)."""
+        if self.scheme.N == 1:  # vectorized fast path: one range per symbol
+            T = self.scheme.T
+            base = symbol_ranges(self.scheme, sbn, 0, K)[0][0]
+            es = np.asarray(esis, np.int64)
+            offs = base + es * T
+            pl = np.asarray(payloads, np.uint8)
+            F = self.scheme.F
+            full = offs + T <= F
+            if full.any():
+                # the io backend scatters row-aligned offsets vectorized
+                # (MemoryIO) or merges adjacent runs into single writes
+                io.write_rows_at(offs[full], pl[full])
+            for i in np.nonzero(~full)[0]:  # final short symbol: clamp to F
+                off = int(offs[i])
+                if off < F:
+                    io.write_at(off, pl[i][: F - off])
+            return
+        segs = []  # (object offset, length, payload row, payload col)
+        for r, esi in enumerate(esis):
+            for off, length, col in symbol_ranges(self.scheme, sbn, int(esi), K):
+                segs.append((off, length, r, col))
+        segs.sort()
+        i = 0
+        while i < len(segs):
+            j = i
+            end = segs[i][0] + segs[i][1]
+            while j + 1 < len(segs) and segs[j + 1][0] == end:
+                j += 1
+                end = segs[j][0] + segs[j][1]
+            data = (
+                payloads[segs[i][2]][segs[i][3] : segs[i][3] + segs[i][1]]
+                if j == i
+                else np.concatenate([payloads[r][c : c + ln] for (_, ln, r, c) in segs[i : j + 1]])
+            )
+            io.write_at(segs[i][0], data)
+            i = j + 1
+
+
+
+class Encoder(_CodecBase):
+    """Systematic RaptorQ encoder (reference nanorq_encoder_new_ex path)."""
+
+    def __init__(self, transfer_length: int, symbol_size: int, Al: int = 4, K: int = 0, Z: int = 0, N: int = 1,
+                 *, device):
+        super().__init__()
+        if transfer_length > MAX_TRANSFER:
+            raise ValueError("transfer too large")
+        # clamp alignment to the largest supported value <= Al (nanorq.c:252-259)
+        for a in (8, 4, 2, 1):
+            if Al >= a:
+                Al = a
+                break
+        else:
+            Al = 1
+        T = max(symbol_size, Al)
+        T -= T % Al
+        # grow T until the transfer fits the symbol budget; step by at least
+        # 2 so Al=1 cannot loop forever (reference nanorq.c:271 has that bug)
+        while div_ceil(transfer_length, T) > Z_MAX * K_MAX:
+            T *= max(Al, 2)
+        if T > 1 << 16:
+            # the OTI common word stores T-1 in 16 bits (codec/oti.py)
+            raise ValueError(f"symbol size {T} exceeds the 65536-byte OTI limit")
+        self.scheme = make_scheme(transfer_length, T, Al, K=K, Z=Z, N=N)
+        self.P = params_init(max(1, self.scheme.block_symbols(0)))
+        self.device = resolve(device)
+
+    # --- schedule management ---
+    def precalculate(self) -> bool:
+        """Solve (and cache) the loss-independent encoder schedule."""
+        _cache.encoder_schedule(self.P.Kp)
+        return True
+
+    def _load(self, io: IOContext, sbn: int) -> _Block:
+        b = self._block(sbn)
+        if not b.loaded:
+            ds = _cache.encoder_schedule(self.P.Kp)
+            D = np.zeros((ds.M_pad, self.scheme.T), np.uint8)
+            for esi in range(b.K):
+                D[esi] = self._read_symbol(io, sbn, esi, b.K)
+            b.D = D
+            b.loaded = True
+        return b
+
+    def generate_symbols(self, sbn: int, io: IOContext, mesh=None) -> bool:
+        """Compute the block's intermediate symbols C [L, T] on the device."""
+        if mesh is not None:
+            raise NotImplementedError(_NO_MESH)
+        b = self._load(io, sbn)
+        if b.C is None:
+            ds = _cache.encoder_schedule(self.P.Kp)
+            b.C = replay(device_arrays(ds, self.device), _upload(b.D, self.device))
+        return True
+
+    def encode_batch(self, sbn: int, esis: np.ndarray, io: IOContext, mesh=None) -> np.ndarray:
+        """Encode many symbols of one block -> [n, T] uint8 (numpy).  Source
+        ESIs come from the loaded rows, repair ESIs from the LT combine."""
+        if mesh is not None:
+            raise NotImplementedError(_NO_MESH)
+        esis = np.asarray(esis, dtype=np.int64)
+        b = self._load(io, sbn)
+        T = self.scheme.T
+        out = np.zeros((len(esis), T), np.uint8)
+        src_mask = esis < b.K
+        if src_mask.any():
+            out[src_mask] = b.D[esis[src_mask]]
+        rep = np.nonzero(~src_mask)[0]
+        if rep.size:
+            self.generate_symbols(sbn, io)
+            isis = (esis[rep] + (self.P.Kp - b.K)).astype(np.uint32)
+            sym = lt_combine(b.C, lt_plan(isis, self.P, self.device))
+            out[rep] = sym[: rep.size, :T].cpu().numpy()
+        return out
+
+    def encode(self, esi: int, sbn: int, io: IOContext) -> np.ndarray:
+        """Single-symbol encode (nanorq_encode parity)."""
+        if esi > (1 << 24) - 1:
+            raise ValueError("esi out of range")
+        return self.encode_batch(sbn, np.array([esi]), io)[0]
 
 
 class _HostResult:
@@ -81,51 +350,288 @@ class _HostView:
         return a if dtype is None else a.astype(dtype)
 
 
-class Encoder(_api.Encoder):
-    """Systematic RaptorQ encoder whose payload math runs on `device`."""
-
-    def __init__(self, transfer_length: int, symbol_size: int, Al: int = 4, K: int = 0,
-                 Z: int = 0, N: int = 1, *, device):
-        super().__init__(transfer_length, symbol_size, Al=Al, K=K, Z=Z, N=N)
-        self.device = resolve(device)
-
-    def generate_symbols(self, sbn: int, io: IOContext, mesh=None) -> bool:
-        """Compute the block's intermediate symbols C [L, T] on the device."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
-        b = self._load(io, sbn)
-        if b.C is None:
-            ds = _jcache.encoder_schedule(self.P.Kp)
-            b.C = replay(device_arrays(ds, self.device), _upload(b.D, self.device))
-        return True
-
-    def encode_batch(self, sbn: int, esis: np.ndarray, io: IOContext, mesh=None) -> np.ndarray:
-        """Encode many symbols of one block -> [n, T] uint8 (numpy).  Source
-        ESIs come from the loaded rows, repair ESIs from the LT combine."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
-        esis = np.asarray(esis, dtype=np.int64)
-        b = self._load(io, sbn)
-        T = self.scheme.T
-        out = np.zeros((len(esis), T), np.uint8)
-        src_mask = esis < b.K
-        if src_mask.any():
-            out[src_mask] = b.D[esis[src_mask]]
-        rep = np.nonzero(~src_mask)[0]
-        if rep.size:
-            self.generate_symbols(sbn, io)
-            isis = (esis[rep] + (self.P.Kp - b.K)).astype(np.uint32)
-            sym = lt_combine(b.C, lt_plan(isis, self.P, self.device))
-            out[rep] = sym[: rep.size, :T].cpu().numpy()
-        return out
-
-
-class Decoder(_api.Decoder):
-    """RaptorQ decoder whose device arm runs on `device`."""
+class Decoder(_CodecBase):
+    """RaptorQ decoder (reference nanorq_decoder_new / add_symbol / repair)."""
 
     def __init__(self, oti_common: int, oti_scheme: int, *, device):
-        super().__init__(oti_common, oti_scheme)
+        super().__init__()
+        F, T = unpack_oti_common(oti_common)
+        Z, N, Al = unpack_oti_scheme(oti_scheme)
+        if F > MAX_TRANSFER:
+            raise ValueError("transfer too large")
+        self.scheme = scheme_from_oti(F, T, Al, Z, N)
+        self.P = params_init(max(1, self.scheme.block_symbols(0)))
+        self.max_esi = 2 * self.P.Kp
         self.device = resolve(device)
+
+    def set_max_esi(self, max_esi: int) -> bool:
+        if max_esi >= (1 << 24) or max_esi < self.P.Kp:
+            return False
+        self.max_esi = max_esi
+        return True
+
+    def add_symbol(self, data, tag: int, io: IOContext) -> int:
+        """Ingest one received symbol (nanorq_decoder_add_symbol parity)."""
+        sbn, esi = split_tag(tag)
+        if sbn >= self.num_blocks or esi > self.max_esi:
+            return SYM_ERR
+        payload = np.frombuffer(bytes(data), np.uint8).copy() if not isinstance(data, np.ndarray) else data.astype(np.uint8).copy()
+        if len(payload) != self.scheme.T:
+            return SYM_ERR  # malformed beats DUP: a bad packet is never "seen"
+        b = self._block(sbn)
+        if b.nsrc == b.K:
+            return SYM_IGN
+        if b.got[esi] if esi < b.K else esi in b.rep_seen:
+            return SYM_DUP
+        if esi < b.K:
+            if b.D is None:
+                b.D = np.zeros((self._d_rows(), self.scheme.T), np.uint8)
+            b.D[esi] = payload
+            self._write_symbol(io, sbn, esi, b.K, payload)
+            b.got[esi] = True
+            b.nsrc += 1
+        else:
+            b.add_repair(np.array([esi], np.int64), payload[None])
+        return SYM_ADDED
+
+    def _d_rows(self) -> int:
+        # room for Kp LT rows + max overhead + S + H, padded generously;
+        # the repair-time D is rebuilt at the schedule's exact M_pad anyway
+        return self.P.Kp + 1
+
+    def add_symbols(self, payloads: np.ndarray, tags, io: IOContext) -> list[int]:
+        """Batched ingestion: payloads [n, T] with per-symbol tags.
+
+        Returns the per-symbol status list with add_symbol's exact in-order
+        semantics (first occurrence ADDED, later DUP; symbols arriving after
+        the block completes IGN), but vectorized: one payload-matrix write
+        per block and coalesced write-through I/O instead of n passes.
+        """
+        payloads = np.asarray(payloads, np.uint8)
+        if payloads.ndim == 1:
+            payloads = payloads[None]
+        try:
+            tags_arr = np.asarray(tags, dtype=np.int64)
+        except (TypeError, ValueError):
+            tags_arr = np.fromiter((int(t) for t in tags), np.int64, count=len(tags))
+        n = tags_arr.shape[0]
+        if payloads.shape[0] != n or payloads.shape[1] != self.scheme.T:
+            return [SYM_ERR] * n
+        sbns = (tags_arr >> 24) & 0xFF
+        esis = tags_arr & 0xFFFFFF
+        fast = self._add_symbols_fast(payloads, sbns, esis, io)
+        if fast is not None:
+            return fast
+        statuses = np.empty(n, np.int64)
+        for sbn in np.unique(sbns):
+            idxs = np.nonzero(sbns == sbn)[0]
+            if sbn >= self.num_blocks:
+                statuses[idxs] = SYM_ERR
+                continue
+            b = self._block(int(sbn))
+            e = esis[idxs]
+            st = np.full(e.shape, SYM_ADDED, np.int64)
+            st[e > self.max_esi] = SYM_ERR
+            ok = st == SYM_ADDED
+            # duplicates: against already-received and within-batch repeats
+            is_src = e < b.K
+            dup = np.zeros(e.shape, bool)
+            dup[is_src] = b.got[e[is_src]]
+            if b.rep_seen:
+                rep_i = np.nonzero(ok & ~is_src)[0]
+                dup[rep_i] = np.fromiter((int(x) in b.rep_seen for x in e[rep_i]), bool, rep_i.size)
+            first = np.zeros(e.shape, bool)
+            first[np.unique(e, return_index=True)[1]] = True
+            st[ok & (dup | ~first)] = SYM_DUP
+            ok = st == SYM_ADDED
+            # in-order completion: a symbol is IGN if the block was already
+            # complete before it (new source symbols fill gaps as they land)
+            missing = b.K - b.nsrc
+            new_src = ok & is_src
+            filled_before = np.concatenate([[0], np.cumsum(new_src)[:-1]])
+            ign = (st != SYM_ERR) & (filled_before >= missing)
+            st[ign] = SYM_IGN
+            ok = st == SYM_ADDED
+            src = ok & is_src
+            if src.any():
+                pe = e[src]
+                pidx = idxs[src]
+                if pidx.size > 1 and pidx[-1] - pidx[0] == pidx.size - 1:
+                    pl = payloads[pidx[0] : pidx[-1] + 1]  # contiguous: no copy
+                else:
+                    pl = payloads[pidx]
+                self._write_symbols_coalesced(io, int(sbn), pe, b.K, pl)
+                b.got[pe] = True
+                b.nsrc += pe.size
+                if b.nsrc < b.K:  # incomplete: keep rows for a later repair
+                    if b.D is None:
+                        b.D = np.zeros((self._d_rows(), self.scheme.T), np.uint8)
+                    b.D[pe] = pl
+                # complete: repair is a no-op, the D rows would never be read
+            rep = np.nonzero(ok & ~src)[0]
+            if rep.size:
+                b.add_repair(e[rep], payloads[idxs[rep]])
+            statuses[idxs] = st
+        return statuses.tolist()
+
+    def _add_symbols_fast(self, payloads, sbns, esis, io: IOContext):
+        """Whole-batch ingestion fast path: a duplicate-free source-symbol
+        burst into untouched blocks (the common 0%-loss in-order delivery
+        case).  All statuses are ADDED by construction; writes collapse to
+        one io.write_at per contiguous run.  Returns None when any
+        precondition fails (the general per-block path handles it).
+
+        The run-coalescing here intentionally parallels
+        _write_symbols_coalesced but works on OBJECT offsets across all
+        blocks at once — a whole in-order object burst merges into a single
+        write, which per-block delegation could not do.
+        """
+        if self.scheme.N != 1 or sbns.size == 0:
+            return None
+        src = self.scheme.src
+        if int(sbns.max()) >= self.num_blocks:
+            return None
+        Ks = np.where(sbns < src.JL, src.IL, src.IS)
+        if (esis >= Ks).any():
+            return None
+        usbns = np.unique(sbns)
+        for s in usbns:
+            b = self._blocks.get(int(s))
+            if b is not None and (b.nsrc or b.nrep or b.D is not None):
+                return None
+        T = self.scheme.T
+        base = np.where(sbns < src.JL, sbns * src.IL,
+                        src.IL * src.JL + (sbns - src.JL) * src.IS) * T
+        off = base + esis * T
+        d = np.diff(off)
+        if (d > 0).all():  # already in object order (the common burst shape)
+            order = np.arange(off.size)
+            off_s, d_s = off, d
+        else:
+            order = np.argsort(off, kind="stable")
+            off_s = off[order]
+            d_s = np.diff(off_s)
+        if (d_s == 0).any():
+            return None  # within-batch duplicate
+        brk = np.nonzero(d_s != T)[0] + 1
+        F = self.scheme.F
+        for s, e in zip(np.r_[0, brk], np.r_[brk, off_s.size]):
+            o0 = int(off_s[s])
+            idx = order[s:e]
+            if idx[-1] - idx[0] == idx.size - 1 and (idx.size == 1 or bool((np.diff(idx) == 1).all())):
+                chunk = payloads[idx[0] : idx[-1] + 1].reshape(-1)  # in-order: no copy
+            else:
+                chunk = payloads[idx].reshape(-1)
+            length = min(chunk.size, max(0, F - o0))
+            if length > 0:
+                io.write_at(o0, chunk[:length])
+        for s in usbns:
+            b = self._block(int(s))
+            m = sbns == s
+            cnt = int(m.sum())
+            if cnt == b.K:  # complete: every esi 0..K-1 present exactly once
+                b.got[:] = True
+                b.nsrc = b.K
+            else:  # partial burst: keep rows for a later repair
+                pe = esis[m]
+                b.got[pe] = True
+                b.nsrc = cnt
+                if b.D is None:
+                    b.D = np.zeros((self._d_rows(), T), np.uint8)
+                b.D[pe] = payloads[m]
+        return [SYM_ADDED] * int(sbns.size)
+
+    def num_missing(self, sbn: int) -> int:
+        b = self._block(sbn)
+        return b.K - b.nsrc
+
+    def num_repair(self, sbn: int) -> int:
+        return self._block(sbn).nrep
+
+    def _repair_prepare(self, sbn: int):
+        """Patched-system inputs for one block: (gaps, isis, overhead) or a
+        terminal bool (True: nothing to repair, False: not enough repair)."""
+        b = self._block(sbn)
+        P = self.P
+        gaps = np.nonzero(~b.got)[0].astype(np.int64)
+        if gaps.size == 0:
+            return True
+        if b.nrep < gaps.size:
+            return False
+        overhead = b.nrep - gaps.size
+        pad = P.Kp - b.K
+
+        # patched system: gap LT slots take repair ISIs; overhead rows after
+        # (reference patch_precode_matrix, nanorq.c:527-547)
+        isis = np.arange(P.Kp + overhead, dtype=np.uint32)
+        rep_isis = (b.rep_esis[: b.nrep] + pad).astype(np.uint32)
+        isis[gaps] = rep_isis[: gaps.size]
+        isis[P.Kp :] = rep_isis[gaps.size :]
+        return gaps, isis, overhead
+
+    def _repair_D(self, sbn: int, gaps: np.ndarray, overhead: int, M_pad: int) -> np.ndarray:
+        """The patched payload matrix D [M_pad, T]: received sources in their
+        rows, repair payloads in the gap and overhead slots (reference
+        fill_symbol_matrix_gaps, nanorq.c:549-565).  M_pad is canonical given
+        (K', overhead), so D can be staged before the pattern is solved."""
+        b = self._block(sbn)
+        P = self.P
+        D = np.zeros((M_pad, self.scheme.T), np.uint8)
+        if b.D is not None:
+            have = np.nonzero(b.got)[0]
+            D[have] = b.D[have]
+        ng = gaps.size
+        D[gaps] = b.rep_rows[:ng]
+        D[P.Kp : P.Kp + overhead] = b.rep_rows[ng : ng + overhead]
+        return D
+
+    def _repair_launch_batch(self, items, mesh=None):
+        """Stacked launch for same-(kind, M_pad) WSchedule blocks.
+
+        items: [(sbn, gaps, overhead, plan, D_host|None)] -> [(sbn, gaps,
+        view)]; the views share one device result, fetched once."""
+        if mesh is not None:
+            raise NotImplementedError(_NO_MESH)
+        stats.count("repair_batch_launch")
+        stats.count("repair_batch_blocks", len(items))
+        plans = [p for _, _, _, p, _ in items]
+        M_pad = plans[0].M_pad
+        D = np.zeros((len(items), M_pad, self.scheme.T), np.uint8)
+        for j, (sbn, gaps, ov, _p, Dh) in enumerate(items):
+            D[j] = Dh if Dh is not None else self._repair_D(sbn, gaps, ov, M_pad)
+        dev = self.device
+        if plans[0].Wbits is not None:
+            bits, rows = wpath.w_stack_gf2(plans)
+            out = wpath.w_apply_gf2_batch(_upload(bits, dev), _upload(rows[..., None], dev),
+                                          _upload(D, dev))
+        else:
+            out = wpath.w_apply_gf256_batch(_upload(wpath.w_stack_gf256(plans), dev), _upload(D, dev))
+        res = _HostResult(out)
+        return [(it[0], it[1], _HostView(res, j)) for j, it in enumerate(items)]
+
+    def _repair_launch(self, sbn: int, gaps: np.ndarray, overhead: int, ds, D_dev=None):
+        """Launch one block's recovery; returns a host view of its gap rows.
+
+        A WSchedule runs one dense-W matmul; a DeviceSchedule the structured
+        replay plus an LT combine of the gap ISIs.  D_dev: optionally the
+        payload matrix [ds.M_pad, T] already on the device."""
+        if D_dev is None:
+            D_dev = _upload(self._repair_D(sbn, gaps, overhead, ds.M_pad), self.device)
+        if isinstance(ds, _cache.WSchedule):
+            sym = ds.apply(D_dev)
+        else:
+            C = replay(device_arrays(ds, self.device), D_dev)
+            sym = lt_combine(C, lt_plan(gaps.astype(np.uint32), self.P, self.device))
+        return _HostView(_HostResult(sym[: gaps.size]))
+
+    def _repair_finish(self, io: IOContext, sbn: int, gaps: np.ndarray, sym) -> bool:
+        b = self._block(sbn)
+        if sym is not None:  # None: already written through (_out_row_ptrs)
+            recovered = np.asarray(sym)[: gaps.size]
+            self._write_symbols_coalesced(io, sbn, gaps, b.K, recovered)
+        b.got[gaps] = True
+        b.nsrc += gaps.size
+        return self.num_missing(sbn) == 0
 
     def repair_block(self, io: IOContext, sbn: int) -> bool:
         """Recover the block's missing source symbols on the device."""
@@ -139,128 +645,86 @@ class Decoder(_api.Decoder):
             return False  # rank deficient: feed more symbols, retry
         return self._repair_finish(io, sbn, gaps, self._repair_launch(sbn, gaps, overhead, ds))
 
-    def _repair_pipeline(self, max_workers: int | None = None, mesh=None, backend: str | None = None,
-                         io: IOContext | None = None):
-        """Route every gap block to an arm and launch it; (ok, launched) as in
-        nanorq_tpu (see the module docstring for the backends)."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
-        backend = backend or os.environ.get("NANORQ_DECODE_BACKEND", "auto")
-        if backend not in BACKENDS:
-            raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
-        work, ok = [], True
-        for sbn in range(self.num_blocks):
-            prep = self._repair_prepare(sbn)
-            if isinstance(prep, bool):
-                ok = ok and prep
-            else:
-                work.append((sbn, *prep))
-        if not work:
-            return ok, []
-        if backend == "res":
-            rok, launched = self._repair_residual_batch(work)
-            return ok and rok, launched
-        if backend == "device" or not native_available():
-            dok, launched = self._repair_pipeline_device(work, max_workers)
-            return ok and dok, launched
+    def _row_ptrs(self, sbn: int, gaps: np.ndarray, overhead: int, NB: int) -> np.ndarray:
+        """Per-row payload addresses of the patched system's NB rows —
+        the zero-copy analog of _repair_D for the native host arm: sources
+        point into the ingestion matrix b.D, gap/overhead slots into the
+        repair payloads, padding + constraint rows at a shared zero row.
+        Every backing buffer is owned by self._blocks[sbn] (alive across
+        the native call); the native side only READS through these."""
+        b = self._block(sbn)
+        T = self.scheme.T
+        ptrs = np.full(NB, _zero_row(T).ctypes.data, np.uint64)
+        if b.D is not None:
+            have = np.nonzero(b.got)[0]
+            ptrs[have] = np.uint64(b.D.ctypes.data) + have.astype(np.uint64) * np.uint64(
+                b.D.strides[0]
+            )
+        ng = gaps.size
+        rep0 = np.uint64(b.rep_rows.ctypes.data)
+        rstride = np.uint64(b.rep_rows.strides[0])
+        ptrs[gaps] = rep0 + np.arange(ng, dtype=np.uint64) * rstride
+        Kp = self.P.Kp
+        ptrs[Kp : Kp + overhead] = rep0 + np.arange(ng, ng + overhead, dtype=np.uint64) * rstride
+        return ptrs
 
-        rhost_work, host_work, dev_work = [], [], []
-        if backend == "host":
-            host_work = work
-        elif backend == "res_host":
-            rhost_work = work
-        else:  # auto: warm plans on the device; cold patterns on the host
-            small = self.P.Kp <= _api._RES_HOST_MAX
-            for item in work:
-                hit, plan = _cache.decoder_plan_cached(self.P, item[2], item[3])
-                if hit and plan is not None:
-                    dev_work.append(item)
-                elif small:
-                    rhost_work.append(item)
-                else:
-                    host_work.append(item)
-        launched = []
-        if rhost_work:
-            rres = self._repair_residual_host_batch(rhost_work, io)
-            if rres is None:  # no native factorization: the patched host solve
-                host_work = host_work + rhost_work
-            else:
-                rok, results = rres
-                ok = ok and rok
-                launched.extend(results)
-        if host_work:
-            res = self._repair_host_batch(host_work, io)
-            if res is None:  # native vanished mid-flight: everything on the device
-                dev_work, launched = work, []
-            else:
-                hok, results = res
-                ok = ok and hok
-                launched.extend(results)
-        if dev_work:
-            dok, dlaunched = self._repair_pipeline_device(dev_work, max_workers)
-            ok = ok and dok
-            launched.extend(dlaunched)
-        return ok, launched
+    def _out_row_ptrs(self, io: IOContext, sbn: int, gaps: np.ndarray) -> np.ndarray | None:
+        """Per-gap output addresses straight into the decode object, or None
+        when direct write-through doesn't apply (sub-blocked layout, non-
+        buffer IO, or a clamped tail symbol).  Lets the native repair write
+        recovered rows once, with no post-repair copy."""
+        if self.scheme.N != 1:
+            return None
+        buf = getattr(io, "buffer", None)
+        if buf is None or not io.writable or not buf.flags["C_CONTIGUOUS"] or buf.size < self.scheme.F:
+            return None
+        T = self.scheme.T
+        base = symbol_ranges(self.scheme, sbn, 0, self._block(sbn).K)[0][0]
+        offs = base + gaps.astype(np.uint64) * np.uint64(T)
+        if gaps.size and int(offs[-1]) + T > self.scheme.F:  # short tail symbol
+            return None
+        return np.uint64(buf.ctypes.data) + offs
 
-    def _repair_residual_batch(self, work):
-        """Residual arm (nanorq_tpu's _repair_residual_batch): repair without a
-        per-pattern solve.  A received repair symbol is y = w . D over the
-        canonical system, so y = W D0 + G X with G = W[:, gaps]; the host
-        finds G's left inverse R (native res_rinv) and the device computes
-        X = R (y ^ W D0) for a chunk of up to _BATCH_FLUSH blocks at once
-        (wpath.res_apply_batch).  Rows and columns are padded to the chunk's
-        largest block, not to a power of two: eager CUDA compiles nothing per
-        shape, and zero rows are exact no-ops.
+    def _repair_host_batch(self, work, io: IOContext | None = None):
+        """CPU arm of the adaptive decode runtime: one native call fusing
+        per-pattern system build + solve + substitution + LT gap combine for
+        a batch of blocks (native.host_repair_shared — the reference's
+        nanorq_repair_block shape, lib/nanorq.c:591-630, with zero device
+        traffic and zero payload copies: the native call reads rows in place
+        via _row_ptrs and, when the output object is a writable buffer,
+        writes recovered rows straight into it via _out_row_ptrs).
 
-        work: [(sbn, gaps, isis, overhead)] -> (ok, [(sbn, gaps, view)]); a
-        rank-deficient G fails its block.  Raises RuntimeError when the
-        native factorization is unavailable."""
+        work: [(sbn, gaps, isis, overhead)].  Returns (ok, results) with
+        results = [(sbn, gaps, recovered_np | None)] for successful blocks
+        (None = already written through to io); rank-deficient blocks count
+        as failures (feed more symbols, retry)."""
         P, T = self.P, self.scheme.T
-        kc = _jcache.res_kcols(P)
-        metas, Ws, Gs = [], [], []
-        with stats.timer("res_prep"):
-            for sbn, gaps, isis, ov in work:
-                W = _cache.res_wrows(P, np.concatenate([isis[gaps], isis[P.Kp : P.Kp + ov]]))
-                if W is None:
-                    raise RuntimeError(_NO_FACTOR)
-                metas.append((sbn, gaps))
-                Ws.append(W)
-                Gs.append(np.ascontiguousarray(W[:, gaps]))
-        with stats.timer("res_rinv"):
-            rr = res_rinv(Gs)
-        if rr is None:
-            raise RuntimeError(_NO_FACTOR)
-        ok, items = True, []
-        for meta, W, R, status in zip(metas, Ws, *rr):
+        base = _cache._base_rows(P)
+        Kp = P.Kp
+        blocks, metas = [], []
+        for sbn, gaps, isis, ov in work:
+            ng = gaps.size
+            rep_isis = np.empty(ng + ov, np.uint32)
+            rep_isis[:ng] = isis[gaps]
+            rep_isis[ng:] = isis[Kp : Kp + ov]
+            orowp = None if io is None else self._out_row_ptrs(io, sbn, gaps)
+            blocks.append((gaps, rep_isis, self._row_ptrs(sbn, gaps, ov, Kp + ov + P.S), orowp))
+            metas.append((sbn, gaps))
+        with stats.timer("host_repair"):
+            res = host_repair_shared(P, base, blocks, T)
+        if res is None:  # native library unavailable: caller reroutes
+            return None
+        outs, statuses = res
+        stats.count("repair_host_blocks", len(blocks))
+        ok, results = True, []
+        for (sbn, gaps), (_, _, _, orowp), out, status in zip(metas, blocks, outs, statuses):
             if status == 0:
-                items.append((meta, W, R))
+                results.append((sbn, gaps, None if orowp is not None else out))
             else:
                 stats.count("decode_rank_deficient")
                 stats.count("repair_block_failed")
                 ok = False
-        stats.count("repair_res_blocks", len(items))
-        dev, launched = self.device, []
-        for c0 in range(0, len(items), self._BATCH_FLUSH):
-            chunk = items[c0 : c0 + self._BATCH_FLUSH]
-            nb = len(chunk)
-            nr = max(W.shape[0] for _, W, _ in chunk)
-            g = max(m[1].size for m, _, _ in chunk)
-            Wst = np.zeros((nb, nr, kc), np.uint8)
-            Rst = np.zeros((nb, g, nr), np.uint8)
-            D0 = np.zeros((nb, kc, T), np.uint8)
-            yst = np.zeros((nb, nr, T), np.uint8)
-            for j, ((sbn, gaps), W, R) in enumerate(chunk):
-                Wst[j, : W.shape[0]] = W
-                Rst[j, : gaps.size, : W.shape[0]] = R
-                b = self._block(sbn)
-                if b.D is not None:
-                    n = min(b.D.shape[0], kc)
-                    D0[j, :n] = b.D[:n]
-                yst[j, : W.shape[0]] = b.rep_rows[: W.shape[0]]
-            res = _HostResult(wpath.res_apply_batch(_upload(Wst, dev), _upload(D0, dev),
-                                                    _upload(Rst, dev), _upload(yst, dev)))
-            launched.extend((m[0], m[1], _HostView(res, j)) for j, (m, _, _) in enumerate(chunk))
-        return ok, launched
+        return ok, results
 
     def _repair_residual_host_batch(self, work, io: IOContext | None = None):
         """Solve-free CPU repair (nanorq_tpu's _repair_residual_host_batch,
@@ -273,7 +737,7 @@ class Decoder(_api.Decoder):
         reroutes to the host arm)."""
         P, T = self.P, self.scheme.T
         scheme = self.scheme
-        kc = _jcache.res_kcols(P)
+        kc = _cache.res_kcols(P)
         Kp = P.Kp
         nb = len(work)
         with stats.timer("res_prep"):
@@ -342,12 +806,138 @@ class Decoder(_api.Decoder):
                 ok = False
         return ok, results
 
+    def _repair_residual_batch(self, work):
+        """Residual arm (nanorq_tpu's _repair_residual_batch): repair without a
+        per-pattern solve.  A received repair symbol is y = w . D over the
+        canonical system, so y = W D0 + G X with G = W[:, gaps]; the host
+        finds G's left inverse R (native res_rinv) and the device computes
+        X = R (y ^ W D0) for a chunk of up to _BATCH_FLUSH blocks at once
+        (wpath.res_apply_batch).  Rows and columns are padded to the chunk's
+        largest block, not to a power of two: eager CUDA compiles nothing per
+        shape, and zero rows are exact no-ops.
+
+        work: [(sbn, gaps, isis, overhead)] -> (ok, [(sbn, gaps, view)]); a
+        rank-deficient G fails its block.  Raises RuntimeError when the
+        native factorization is unavailable."""
+        P, T = self.P, self.scheme.T
+        kc = _cache.res_kcols(P)
+        metas, Ws, Gs = [], [], []
+        with stats.timer("res_prep"):
+            for sbn, gaps, isis, ov in work:
+                W = _cache.res_wrows(P, np.concatenate([isis[gaps], isis[P.Kp : P.Kp + ov]]))
+                if W is None:
+                    raise RuntimeError(_NO_FACTOR)
+                metas.append((sbn, gaps))
+                Ws.append(W)
+                Gs.append(np.ascontiguousarray(W[:, gaps]))
+        with stats.timer("res_rinv"):
+            rr = res_rinv(Gs)
+        if rr is None:
+            raise RuntimeError(_NO_FACTOR)
+        ok, items = True, []
+        for meta, W, R, status in zip(metas, Ws, *rr):
+            if status == 0:
+                items.append((meta, W, R))
+            else:
+                stats.count("decode_rank_deficient")
+                stats.count("repair_block_failed")
+                ok = False
+        stats.count("repair_res_blocks", len(items))
+        dev, launched = self.device, []
+        for c0 in range(0, len(items), self._BATCH_FLUSH):
+            chunk = items[c0 : c0 + self._BATCH_FLUSH]
+            nb = len(chunk)
+            nr = max(W.shape[0] for _, W, _ in chunk)
+            g = max(m[1].size for m, _, _ in chunk)
+            Wst = np.zeros((nb, nr, kc), np.uint8)
+            Rst = np.zeros((nb, g, nr), np.uint8)
+            D0 = np.zeros((nb, kc, T), np.uint8)
+            yst = np.zeros((nb, nr, T), np.uint8)
+            for j, ((sbn, gaps), W, R) in enumerate(chunk):
+                Wst[j, : W.shape[0]] = W
+                Rst[j, : gaps.size, : W.shape[0]] = R
+                b = self._block(sbn)
+                if b.D is not None:
+                    n = min(b.D.shape[0], kc)
+                    D0[j, :n] = b.D[:n]
+                yst[j, : W.shape[0]] = b.rep_rows[: W.shape[0]]
+            res = _HostResult(wpath.res_apply_batch(_upload(Wst, dev), _upload(D0, dev),
+                                                    _upload(Rst, dev), _upload(yst, dev)))
+            launched.extend((m[0], m[1], _HostView(res, j)) for j, (m, _, _) in enumerate(chunk))
+        return ok, launched
+
+    # WSchedule blocks accumulate into stacked dispatches of up to this many
+    # blocks (pow2-padded shapes bound compile diversity; chunking keeps
+    # device work flowing while later solves run)
+    _BATCH_FLUSH = 32
+
+    def _repair_pipeline(self, max_workers: int | None = None, mesh=None, backend: str | None = None,
+                         io: IOContext | None = None):
+        """Route every gap block to an arm and launch it; (ok, launched) as in
+        nanorq_tpu (see the module docstring for the backends)."""
+        if mesh is not None:
+            raise NotImplementedError(_NO_MESH)
+        backend = backend or os.environ.get("NANORQ_DECODE_BACKEND", "auto")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
+        work, ok = [], True
+        for sbn in range(self.num_blocks):
+            prep = self._repair_prepare(sbn)
+            if isinstance(prep, bool):
+                ok = ok and prep
+            else:
+                work.append((sbn, *prep))
+        if not work:
+            return ok, []
+        if backend == "res":
+            rok, launched = self._repair_residual_batch(work)
+            return ok and rok, launched
+        if backend == "device" or not native_available():
+            dok, launched = self._repair_pipeline_device(work, max_workers)
+            return ok and dok, launched
+
+        rhost_work, host_work, dev_work = [], [], []
+        if backend == "host":
+            host_work = work
+        elif backend == "res_host":
+            rhost_work = work
+        else:  # auto: warm plans on the device; cold patterns on the host
+            small = self.P.Kp <= _RES_HOST_MAX
+            for item in work:
+                hit, plan = _cache.decoder_plan_cached(self.P, item[2], item[3])
+                if hit and plan is not None:
+                    dev_work.append(item)
+                elif small:
+                    rhost_work.append(item)
+                else:
+                    host_work.append(item)
+        launched = []
+        if rhost_work:
+            rres = self._repair_residual_host_batch(rhost_work, io)
+            if rres is None:  # no native factorization: the patched host solve
+                host_work = host_work + rhost_work
+            else:
+                rok, results = rres
+                ok = ok and rok
+                launched.extend(results)
+        if host_work:
+            res = self._repair_host_batch(host_work, io)
+            if res is None:  # native vanished mid-flight: everything on the device
+                dev_work, launched = work, []
+            else:
+                hok, results = res
+                ok = ok and hok
+                launched.extend(results)
+        if dev_work:
+            dok, dlaunched = self._repair_pipeline_device(dev_work, max_workers)
+            ok = ok and dok
+            launched.extend(dlaunched)
+        return ok, launched
+
     def _repair_pipeline_device(self, work, max_workers: int | None = None, mesh=None):
         """Device arm: per-pattern plans solved in one worker thread while
         this thread launches each block as its solve lands; WSchedule
         blocks of one (kind, M_pad) are stacked into batches."""
-        from concurrent.futures import ThreadPoolExecutor
-
         if mesh is not None:
             raise NotImplementedError(_NO_MESH)
         stats.count("repair_device_blocks", len(work))
@@ -369,7 +959,7 @@ class Decoder(_api.Decoder):
                 if ds is None:
                     stats.count("repair_block_failed")
                     ok = False
-                elif isinstance(ds, _jcache.WSchedule):
+                elif isinstance(ds, _cache.WSchedule):
                     key = (ds.Wbits is not None, ds.M_pad)
                     pend.setdefault(key, []).append((sbn, gaps, ov, ds, None))
                     if len(pend[key]) >= self._BATCH_FLUSH:
@@ -380,41 +970,23 @@ class Decoder(_api.Decoder):
                 flush(key)
         return ok, launched
 
-    def _repair_launch(self, sbn: int, gaps: np.ndarray, overhead: int, ds, D_dev=None):
-        """Launch one block's recovery; returns a host view of its gap rows.
+    def repair_all(self, io: IOContext, max_workers: int | None = None, mesh=None,
+                   backend: str | None = None) -> bool:
+        """Repair every block through the adaptive runtime.
 
-        A WSchedule runs one dense-W matmul; a DeviceSchedule the structured
-        replay plus an LT combine of the gap ISIs.  D_dev: optionally the
-        payload matrix [ds.M_pad, T] already on the device."""
-        if D_dev is None:
-            D_dev = _upload(self._repair_D(sbn, gaps, overhead, ds.M_pad), self.device)
-        if isinstance(ds, _jcache.WSchedule):
-            sym = _cache.apply(ds, D_dev)
-        else:
-            C = replay(device_arrays(ds, self.device), D_dev)
-            sym = lt_combine(C, lt_plan(gaps.astype(np.uint32), self.P, self.device))
-        return _HostView(_HostResult(sym[: gaps.size]))
+        Cold loss patterns run on the native CPU arm (solve + substitution
+        fused, zero device traffic — _repair_host_batch); warm patterns
+        replay their cached compiled plans on device, pipelined (SURVEY.md
+        §7 hard-part 5): per-pattern host solves run in a worker thread
+        while device replays dispatch as each solve lands, W-plan blocks
+        stacked into batched dispatches.  Pass a jax.sharding.Mesh to shard
+        those batches over its first axis (per-block independence needs no
+        collectives; forces the device arm).  `backend` overrides the arm:
+        "auto" (default, env NANORQ_DECODE_BACKEND) / "res" / "device" /
+        "host".
 
-    def _repair_launch_batch(self, items, mesh=None):
-        """Stacked launch for same-(kind, M_pad) WSchedule blocks.
-
-        items: [(sbn, gaps, overhead, plan, D_host|None)] -> [(sbn, gaps,
-        view)]; the views share one device result, fetched once."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
-        stats.count("repair_batch_launch")
-        stats.count("repair_batch_blocks", len(items))
-        plans = [p for _, _, _, p, _ in items]
-        M_pad = plans[0].M_pad
-        D = np.zeros((len(items), M_pad, self.scheme.T), np.uint8)
-        for j, (sbn, gaps, ov, _p, Dh) in enumerate(items):
-            D[j] = Dh if Dh is not None else self._repair_D(sbn, gaps, ov, M_pad)
-        dev = self.device
-        if plans[0].Wbits is not None:
-            bits, rows = wpath.w_stack_gf2(plans)
-            out = wpath.w_apply_gf2_batch(_upload(bits, dev), _upload(rows[..., None], dev),
-                                          _upload(D, dev))
-        else:
-            out = wpath.w_apply_gf256_batch(_upload(wpath.w_stack_gf256(plans), dev), _upload(D, dev))
-        res = _HostResult(out)
-        return [(it[0], it[1], _HostView(res, j)) for j, it in enumerate(items)]
+        Returns True iff every block is fully recovered."""
+        ok, launched = self._repair_pipeline(max_workers, mesh=mesh, backend=backend, io=io)
+        for sbn, gaps, sym in launched:
+            ok = self._repair_finish(io, sbn, gaps, sym) and ok
+        return ok

@@ -1,4 +1,4 @@
-// K3 gf256_matmul: out[r, :] (^)= XOR_c M[r, c] (x) X[c, :]   over GF(256), poly 0x11D
+// K3 gf256_matmul: out_b[r, :] (^)= XOR_c M_b[r, c] (x) X_b[c, :]  over GF(256), poly 0x11D
 //
 // Replaces the TPU kernel gf256_matmul_pallas (nanorq_tpu/ops/pallas_kernels.py,
 // gf256_matmul_pallas with its bodies _gf256_kernel / _gf256_kernel_1k and the
@@ -6,29 +6,40 @@
 // which expands M into an [8m, 8k] companion-bit matrix and runs it as a
 // GF(2) bit-plane matmul on the MXU.
 //
-// Here M stays a byte matrix -- no 64x companion expansion -- and products
-// come from log/exp tables in shared memory, built by the caller from
-// nanorq_tpu/gf256/tables.py: a (x) b = exp[log a + log b], with log[0] a
-// sentinel (512) that lands in the zero upper half of the 1024-entry exp
-// table, so a zero payload byte needs no branch.  What bounds it on the H100:
-// shared-memory lookups, one per payload byte per nonzero coefficient
-// (m*k*t in all); device memory moves (m/RM)*k*t bytes through L2.  Design:
-// a block owns RM output rows times a span of 16-byte lanes; per column c
-// each thread loads X[c] for its lane once, turns its 16 bytes into logs
-// once, and reuses them for all RM rows (16 exp lookups per row).  The RM
-// rows' coefficients are staged per k-tile in shared memory as logs, with
-// zero coefficients flagged and skipped; every thread tests the same flag,
-// so the branch never diverges.
-// Grid z is a block axis: nb independent products M_b (x) X_b, each at its own
-// byte offset (strides sM, sX, sO), in one launch -- the batched residual
-// decode (the JAX package vmaps it, nanorq_tpu/ops/wpath.py _res_batch_jit).
-// A 2-D call is nb = 1.
-#include "common.cuh"
+// Form 0 (nrq_gf256_matmul) is that computation on K2's core (gf2_core.cuh):
+// the caller expands M into its companion bits, packed [8m, k] bytes (row
+// 8r+p, byte c holds bit p of M[r][c] (x) alpha^q at bit q), and the core's
+// tensor cores take bit q of X[c] as the k index 8c+q -- X is read as bytes
+// and split into planes only in registers.  Bound on the H100: 128*m*k*t
+// int8 tensor-core operations at 1,979 TOP/s, or the bytes where m is small.
+// The core splits k to fill the card at decode widths and has a grid-z
+// block axis (the batched residual and W decodes).
+//
+// Form 2 (nrq_gf256_m4r) runs on K2's four-Russians form: M's bytes read as
+// bits (bit q of M[r][c] is A column 8c+q) against the rows alpha^q (x) X[c],
+// which the block tabulates per nibble of coefficients (15 combinations of
+// alpha^(4h+j) (x) X[c], j < 4), so each row takes two table entries per
+// coefficient and never multiplies, and M needs no companion expansion.
+// Bound as form 0's, reached within a small factor: the lookups and XORs
+// run on the CUDA cores and shared memory (PERF.md).  The wrapper's rule
+// (ops/kernels.gf256_form) takes this form at every main-path shape but
+// one: a wide product of at most 16 rows goes to form 1.
+//
+// Form 1 (nrq_gf256_logexp) is the direct byte design, kept to be measured
+// beside it: products from log/exp tables in shared memory (log[0] = 512
+// lands in the zero upper half of the 1024-entry exp table, so a zero byte
+// needs no branch).  Bound: ~1.1 shared-memory lookups per byte product,
+// which conflict across banks.  A block owns RM rows x a span of 16-byte
+// lanes; grid y also splits k in 32-column units when fewer than 264 blocks
+// (two per SM) would run, XORing partial products with atomicXor, so the
+// narrow products fill the card as form 0's do.
+#include "gf2_core.cuh"
 
 namespace nrq {
 
 constexpr int GF256_RM = 8;    // output rows per block
 constexpr int GF256_KT = 256;  // k columns staged per tile
+constexpr int GF256_KQ = 32;   // k columns per split unit
 constexpr uint16_t GF256_ZERO = 0xffff;
 
 __device__ __forceinline__ void byte_logs(uint4 x, const uint16_t* slog, uint16_t* l) {
@@ -57,12 +68,36 @@ __device__ __forceinline__ uint8_t mul_logs(const uint16_t* l, uint16_t lc, cons
   return sexp[l[0] + lc];
 }
 
+__device__ __forceinline__ void xor_out(uint4* o, uint4 v, int mode) {
+  if (mode == 0) {
+    *o = v;
+  } else if (mode == 1) {
+    *o = vxor(*o, v);
+  } else {
+    unsigned* w = reinterpret_cast<unsigned*>(o);
+    if (v.x) atomicXor(w, v.x);
+    if (v.y) atomicXor(w + 1, v.y);
+    if (v.z) atomicXor(w + 2, v.z);
+    if (v.w) atomicXor(w + 3, v.w);
+  }
+}
+__device__ __forceinline__ void xor_out(uint8_t* o, uint8_t v, int mode) {
+  if (mode == 0) {
+    *o = v;
+  } else if (mode == 1) {
+    *o ^= v;
+  } else if (v) {
+    const uintptr_t p = reinterpret_cast<uintptr_t>(o);
+    atomicXor(reinterpret_cast<unsigned*>(p & ~uintptr_t(3)), static_cast<unsigned>(v) << (8 * (p & 3)));
+  }
+}
+
 template <typename V>
-__global__ void gf256_matmul_kernel(const uint8_t* __restrict__ M, int64_t m, int64_t k,
-                                    const V* __restrict__ X, int64_t lanes,
-                                    const uint16_t* __restrict__ log_tab,
+__global__ void gf256_logexp_kernel(const uint8_t* __restrict__ M, int64_t m, int64_t k,
+                                    const V* __restrict__ X, int64_t lanes, int64_t lane_blocks,
+                                    int64_t kper, const uint16_t* __restrict__ log_tab,
                                     const uint8_t* __restrict__ exp_tab, V* __restrict__ out,
-                                    int accumulate, int64_t sM, int64_t sX, int64_t sO) {
+                                    int mode, int64_t sM, int64_t sX, int64_t sO) {
   constexpr int NB = sizeof(V);  // payload bytes per lane
   __shared__ uint16_t slog[256];
   __shared__ uint8_t sexp[1024];
@@ -74,14 +109,16 @@ __global__ void gf256_matmul_kernel(const uint8_t* __restrict__ M, int64_t m, in
   out += blockIdx.z * sO;
 
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * GF256_RM;
-  const int64_t col = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
+  const int64_t ly = blockIdx.y % lane_blocks, split = blockIdx.y / lane_blocks;
+  const int64_t col = ly * blockDim.x + threadIdx.x;
+  const int64_t kb = split * kper, ke = kb + kper < k ? kb + kper : k;
   const bool active = col < lanes;
   V acc[GF256_RM];
 #pragma unroll
   for (int r = 0; r < GF256_RM; ++r) acc[r] = vzero<V>();
 
-  for (int64_t k0 = 0; k0 < k; k0 += GF256_KT) {
-    const int kn = static_cast<int>(k - k0 < GF256_KT ? k - k0 : GF256_KT);
+  for (int64_t k0 = kb; k0 < ke; k0 += GF256_KT) {
+    const int kn = static_cast<int>(ke - k0 < GF256_KT ? ke - k0 : GF256_KT);
     __syncthreads();  // tables loaded; the previous tile is no longer read
     for (int e = threadIdx.x; e < GF256_RM * GF256_KT; e += blockDim.x) {
       const int r = e / GF256_KT, c = e % GF256_KT;
@@ -109,26 +146,42 @@ __global__ void gf256_matmul_kernel(const uint8_t* __restrict__ M, int64_t m, in
 #pragma unroll
   for (int r = 0; r < GF256_RM; ++r) {
     const int64_t row = r0 + r;
-    if (row < m) {
-      V* o = out + row * lanes + col;
-      *o = accumulate ? vxor(*o, acc[r]) : acc[r];
-    }
+    if (row < m) xor_out(out + row * lanes + col, acc[r], mode);
   }
 }
 
 template <typename V>
-static cudaError_t launch_gf256(int64_t nb, const uint8_t* M, int64_t m, int64_t k, int64_t sM,
-                                const void* X, int64_t lanes, int64_t sX,
-                                const uint16_t* log_tab, const uint8_t* exp_tab, void* out,
-                                int64_t sO, int accumulate, cudaStream_t stream) {
+static cudaError_t launch_logexp(int64_t nb, const uint8_t* M, int64_t m, int64_t k, int64_t sM,
+                                 const void* X, int64_t lanes, int64_t t, int64_t sX,
+                                 const uint16_t* log_tab, const uint8_t* exp_tab, void* out,
+                                 int64_t sO, int accumulate, int64_t ksplit, cudaStream_t stream) {
   const int bx = lane_threads(lanes);
   const int64_t gx = (m + GF256_RM - 1) / GF256_RM;
-  const int64_t gy = (lanes + bx - 1) / bx;
+  const int64_t lane_blocks = (lanes + bx - 1) / bx;
+  const int64_t units = (k + GF256_KQ - 1) / GF256_KQ;
+  const int64_t base = gx * lane_blocks * nb;
+  constexpr int64_t fill = core::FILL_BLOCKS / 2;  // two waves of one block per SM: its own grid
+  if (ksplit <= 0) ksplit = base >= fill ? 1 : (fill + base - 1) / base;
+  if (ksplit > units) ksplit = units;
+  if (ksplit < 1) ksplit = 1;
+  const int64_t kper = ((units + ksplit - 1) / ksplit) * GF256_KQ;
+  if (kper) ksplit = (k + kper - 1) / kper;
+  if (ksplit < 1) ksplit = 1;
+  const int64_t gy = lane_blocks * ksplit;
   if (gy > 65535 || gx > 0x7fffffff || nb > 65535) return cudaErrorInvalidConfiguration;
-  gf256_matmul_kernel<V><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
+  int mode = accumulate ? 1 : 0;
+  if (ksplit > 1) {
+    mode = 2;
+    if (!accumulate) {
+      cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>((nb - 1) * sO + m * t), stream);
+      if (e != cudaSuccess) return e;
+    }
+  }
+  gf256_logexp_kernel<V><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
                                 static_cast<unsigned>(nb)),
-                           bx, 0, stream>>>(M, m, k, static_cast<const V*>(X), lanes, log_tab,
-                                            exp_tab, static_cast<V*>(out), accumulate, sM,
+                           bx, 0, stream>>>(M, m, k, static_cast<const V*>(X), lanes, lane_blocks,
+                                            kper ? kper : GF256_KQ, log_tab, exp_tab,
+                                            static_cast<V*>(out), mode, sM,
                                             sX / static_cast<int64_t>(sizeof(V)),
                                             sO / static_cast<int64_t>(sizeof(V)));
   return cudaGetLastError();
@@ -136,20 +189,43 @@ static cudaError_t launch_gf256(int64_t nb, const uint8_t* M, int64_t m, int64_t
 
 }  // namespace nrq
 
-// nb blocks b of M uint8 [m, k] at M + b*sM, X uint8 [k, t] at X + b*sX and
-// out uint8 [m, t] at out + b*sO (strides in bytes; each matrix contiguous);
-// log_tab uint16 [256] (log_tab[0] = 512), exp_tab uint8 [1024] (alpha^i below
-// 510, zero above).
-extern "C" int nrq_gf256_matmul(int64_t nb, const void* M, int64_t m, int64_t k, int64_t sM,
+// Form 0.  nb blocks b of comp uint8 [8m, k] (the companion bits of M_b,
+// pitch a multiple of 16 bytes, as is sC) at comp + b*sC, X uint8 [k, t] at
+// X + b*sX and out uint8 [m, t] at out + b*sO (strides in bytes).
+extern "C" int nrq_gf256_matmul(int64_t nb, const void* comp, int64_t m, int64_t k, int64_t sC,
+                                const void* X, int64_t t, int64_t sX, void* out, int64_t sO,
+                                int accumulate, int64_t ksplit, void* stream) {
+  using namespace nrq::core;
+  return launch_core<FORM_GF256_TC>(nb, static_cast<const uint8_t*>(comp), 8 * m, k, sC,
+                                    static_cast<const uint8_t*>(X), k, t, sX, static_cast<uint8_t*>(out),
+                                    m, sO, accumulate, ksplit, static_cast<cudaStream_t>(stream));
+}
+
+// Form 2.  nb blocks b of M uint8 [m, pitch] at M + b*sM (pitch >= k, a
+// multiple of 16, as is sM), X and out as in form 0.
+extern "C" int nrq_gf256_m4r(int64_t nb, const void* M, int64_t m, int64_t k, int64_t pitch, int64_t sM,
+                             const void* X, int64_t t, int64_t sX, void* out, int64_t sO, int accumulate,
+                             int64_t ksplit, void* stream) {
+  using namespace nrq::core;
+  return launch_core<FORM_GF256_M4R>(nb, static_cast<const uint8_t*>(M), m, pitch, sM,
+                                     static_cast<const uint8_t*>(X), k, t, sX, static_cast<uint8_t*>(out),
+                                     m, sO, accumulate, ksplit, static_cast<cudaStream_t>(stream));
+}
+
+// Form 1.  M uint8 [m, k] at M + b*sM (bytes); log_tab uint16 [256]
+// (log_tab[0] = 512), exp_tab uint8 [1024] (alpha^i below 510, zero above).
+extern "C" int nrq_gf256_logexp(int64_t nb, const void* M, int64_t m, int64_t k, int64_t sM,
                                 const void* X, int64_t t, int64_t sX, const void* log_tab,
                                 const void* exp_tab, void* out, int64_t sO, int accumulate,
-                                void* stream) {
+                                int64_t ksplit, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* Mb = static_cast<const uint8_t*>(M);
   const uint16_t* lt = static_cast<const uint16_t*>(log_tab);
   const uint8_t* et = static_cast<const uint8_t*>(exp_tab);
+  if (nb <= 0 || m <= 0 || t <= 0) return cudaSuccess;
   if (t % 16 == 0 && sX % 16 == 0 && sO % 16 == 0 && nrq::aligned16(X) && nrq::aligned16(out))
-    return nrq::launch_gf256<uint4>(nb, Mb, m, k, sM, X, t / 16, sX, lt, et, out, sO, accumulate,
-                                    s);
-  return nrq::launch_gf256<uint8_t>(nb, Mb, m, k, sM, X, t, sX, lt, et, out, sO, accumulate, s);
+    return nrq::launch_logexp<uint4>(nb, Mb, m, k, sM, X, t / 16, t, sX, lt, et, out, sO, accumulate,
+                                     ksplit, s);
+  return nrq::launch_logexp<uint8_t>(nb, Mb, m, k, sM, X, t, t, sX, lt, et, out, sO, accumulate, ksplit,
+                                     s);
 }

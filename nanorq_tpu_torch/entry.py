@@ -9,11 +9,11 @@ source).
 import numpy as np
 import torch
 
-from nanorq_tpu.codec.cache import encoder_schedule
-from nanorq_tpu.rfc.params import params_init
+from nanorq_tpu_torch.codec.cache import encoder_schedule
 from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
 from nanorq_tpu_torch.ops.replay import device_arrays, replay
+from nanorq_tpu_torch.rfc.params import params_init
 
 
 def flagship(device, K: int = 1000, T: int = 1280, blocks: int = 2, seed: int = 0):

@@ -1,8 +1,9 @@
-"""The host half of the codec that the port reuses from `nanorq_tpu`, and the
+"""Host pieces of the port that scripts such as `chip_smoke.py` use, and the
 numpy oracle of its payload math.
 
-These are re-exported so that callers of the port (scripts such as
-`chip_smoke.py`) import only `nanorq_tpu_torch`; none of them loads JAX:
+The port keeps its own copy of the JAX package's host half (`rfc/`,
+`gf256/`, `precode/`, `native/`, `io/`, `codec/`); this module gathers
+what callers need from it:
 
 - object I/O and packet tags: `MemoryIO`, `make_tag`;
 - the native C++ solver probe: `native_available`;
@@ -16,14 +17,14 @@ These are re-exported so that callers of the port (scripts such as
 
 import numpy as np
 
-from nanorq_tpu.codec.cache import encoder_schedule
-from nanorq_tpu.codec.oti import make_tag
-from nanorq_tpu.io.ioctx import MemoryIO
-from nanorq_tpu.native import native_available
-from nanorq_tpu.precode.device_schedule import replay_structured_numpy as replay_numpy
-from nanorq_tpu.rfc.params import Params, params_init
-from nanorq_tpu.rfc.tuples import lt_indices
-from nanorq_tpu.utils import stats
+from nanorq_tpu_torch.codec.cache import encoder_schedule
+from nanorq_tpu_torch.codec.oti import make_tag
+from nanorq_tpu_torch.io.ioctx import MemoryIO
+from nanorq_tpu_torch.native import native_available
+from nanorq_tpu_torch.precode.device_schedule import replay_structured_numpy as replay_numpy
+from nanorq_tpu_torch.rfc.params import Params, params_init
+from nanorq_tpu_torch.rfc.tuples import lt_indices
+from nanorq_tpu_torch.utils import stats
 
 __all__ = ["MemoryIO", "encoder_schedule", "lt_numpy", "make_tag", "native_available",
            "params_init", "replay_numpy", "stats"]

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-`nvcc` compiles every `csrc/*.cu` for sm_90a (Hopper) into one shared
-library with a plain C interface, loaded with ctypes -- no PyTorch headers,
-so a build takes seconds.  The library lands in `nanorq_tpu_torch/_build/`
+`nvcc` compiles every `csrc/*.cu` for sm_90a (Hopper), one process per
+source, all started together, and links them into one shared library with a
+plain C interface, loaded with ctypes -- no PyTorch headers, so a build
+takes seconds.  The library lands in `nanorq_tpu_torch/_build/`
 under a hash of the sources and flags, so an edited kernel rebuilds and an
 unchanged one loads at once.  A missing `nvcc`, a failed build or a failed
 load raises: there is no fallback.
@@ -22,7 +23,7 @@ BUILD_ROOT = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -63,13 +64,15 @@ def _digest(srcs: list[str]) -> str:
 def _bind(lib) -> None:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.nrq_gather_xor.argtypes = [vp, i64, i64, vp, i64, i64, vp, i32, vp, vp]
-    lib.nrq_gf2_matmul.argtypes = [vp, i64, i64, i64, vp, i64, vp, i32, vp]
-    lib.nrq_gf256_matmul.argtypes = [i64, vp, i64, i64, i64, vp, i64, i64, vp, vp, vp, i64, i32, vp]
+    lib.nrq_gf2_matmul.argtypes = [i32, i64, vp, i64, i64, i64, i64, vp, i64, i64, vp, i64, i32, i64, vp]
+    lib.nrq_gf256_matmul.argtypes = [i64, vp, i64, i64, i64, vp, i64, i64, vp, i64, i32, i64, vp]
+    lib.nrq_gf256_logexp.argtypes = [i64, vp, i64, i64, i64, vp, i64, i64, vp, vp, vp, i64, i32, i64, vp]
+    lib.nrq_gf256_m4r.argtypes = [i64, vp, i64, i64, i64, i64, vp, i64, i64, vp, i64, i32, i64, vp]
     lib.nrq_gather_v1.argtypes = [vp, i64, i64, vp, i64, i64, i32, i32, vp, vp, vp]
     lib.nrq_gather_v2.argtypes = [vp, i64, i64, vp, i64, i64, vp, i32, i32, vp, vp, vp, vp]
     lib.nrq_gather_db.argtypes = [vp, i64, i64, vp, i64, i64, i32, vp, vp, vp]
-    for fn in (lib.nrq_gather_xor, lib.nrq_gf2_matmul, lib.nrq_gf256_matmul, lib.nrq_gather_v1,
-               lib.nrq_gather_v2, lib.nrq_gather_db):
+    for fn in (lib.nrq_gather_xor, lib.nrq_gf2_matmul, lib.nrq_gf256_matmul, lib.nrq_gf256_logexp, lib.nrq_gf256_m4r,
+               lib.nrq_gather_v1, lib.nrq_gather_v2, lib.nrq_gather_db):
         fn.restype = ctypes.c_int
 
 
@@ -89,11 +92,23 @@ def load():
             cu = [s for s in srcs if s.endswith(".cu")]
             os.makedirs(out_dir, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            log = r.stdout + r.stderr
+            objs = [f"{tmp}.{os.path.basename(c)}.o" for c in cu]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", o, c],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for c, o in zip(cu, objs)]
+            for c, p in zip(cu, procs):  # every compile is waited for, even after a failure
+                out, _ = p.communicate()
+                log += out
+            bad = [(c, p.returncode) for c, p in zip(cu, procs) if p.returncode != 0]
+            if bad:
+                raise RuntimeError(f"nvcc failed on {bad}:\n{log}")
+            r = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+                               capture_output=True, text=True)
+            log += r.stdout + r.stderr
+            for o in objs:
+                os.remove(o)
             if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
+                raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{log}")
             os.replace(tmp, path)  # atomic: concurrent builds never see a partial file
             built = True
         lib = ctypes.CDLL(path)

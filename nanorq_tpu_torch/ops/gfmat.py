@@ -14,7 +14,7 @@ float32).
 
 import torch
 
-from nanorq_tpu.gf256.tables import GF_MUL, OCT_EXP
+from nanorq_tpu_torch.gf256.tables import GF_MUL, OCT_EXP
 
 _SHIFTS = {}  # device -> uint8 arange(8), the bit positions
 _GF_MUL = {}  # device -> [256, 256] uint8 product table

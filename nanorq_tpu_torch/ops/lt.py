@@ -17,14 +17,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from nanorq_tpu.precode.device_schedule import _gather_plan_flat
-from nanorq_tpu.rfc.params import Params
-from nanorq_tpu.rfc.tuples import lt_indices
-from nanorq_tpu.utils import stats
-from nanorq_tpu.utils.lru import ByteLRU
 from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.ops.kernels import gather_xor
 from nanorq_tpu_torch.ops.replay import _apply_plan, _idx, take_rows
+from nanorq_tpu_torch.precode.device_schedule import _gather_plan_flat
+from nanorq_tpu_torch.rfc.params import Params
+from nanorq_tpu_torch.rfc.tuples import lt_indices
+from nanorq_tpu_torch.utils import stats
+from nanorq_tpu_torch.utils.lru import ByteLRU
 
 
 def _pad_rows(n: int) -> int:

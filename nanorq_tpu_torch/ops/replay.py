@@ -19,9 +19,9 @@ buffers it owns in place where JAX had to copy.
 import numpy as np
 import torch
 
-from nanorq_tpu.precode.device_schedule import DeviceSchedule
 from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.ops.kernels import gather_xor, gf2_matmul, gf256_matmul
+from nanorq_tpu_torch.precode.device_schedule import DeviceSchedule
 
 
 def _idx(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -40,11 +40,22 @@ def _u8(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
 
 
+def _extent(a: np.ndarray, axis: int) -> int:
+    """1 + the last index along `axis` (0 rows, 1 columns) holding a nonzero."""
+    nz = np.nonzero(np.asarray(a).any(axis=1 - axis))[0]
+    return int(nz[-1]) + 1 if nz.size else 0
+
+
 def device_arrays(ds: DeviceSchedule, device) -> dict:
     """A DeviceSchedule's tensors on `device`, cached on the schedule.
 
     The cache lives under the port's own attribute (`_torch_arrays`, keyed
-    by device), apart from the JAX executor's `_dev_arrays`.
+    by device).  The dense products run on their nonzero extents: HDPC's
+    `mhd` padded to H_pad rows and Lpad columns holds H rows and ~L columns,
+    Wut's [Lpad, u_pad] bits ~L rows and u columns, so the kernels skip the
+    zero padding (rows of `mhd` past its extent give zero products, which
+    stay in the zeroed product buffer; columns of `mhd` and `wut` past it
+    select nothing).
     """
     dev = resolve(device)
     cache = ds.__dict__.setdefault("_torch_arrays", {})
@@ -68,11 +79,17 @@ def device_arrays(ds: DeviceSchedule, device) -> dict:
         "bsel_passes": [_idx(p, dev) for p in ds.bsel.passes],
         "bsel_overflow": [(_idx(ix, dev), _col(sel, dev)) for ix, sel in ds.bsel.overflow],
         "hd_sel": None if ds.mhd is None else _col(ds.hd_sel, dev),
-        "mhd": None if ds.mhd is None else _u8(ds.mhd, dev),  # [H_pad, Lpad] bytes
         "vinv": _u8(ds.vinv, dev),  # [u_pad, u_pad] bytes
-        "wut": _u8(ds.wut, dev),  # [Lpad, u_pad/8], packed as stored
         "out_sel": _col(ds.out_sel, dev),
     }
+    if ds.mhd is not None:  # [H_pad, Lpad] bytes -> its extent, columns to a multiple of 16
+        hr = _extent(ds.mhd, 0)
+        hc = min(-(-_extent(ds.mhd, 1) // 16) * 16, ds.mhd.shape[1])
+        arr["H_pad"] = ds.mhd.shape[0]
+        arr["mhd"] = _u8(ds.mhd[:hr, :hc], dev)
+    # [Lpad, u_pad/8] packed bits -> rows of its extent, k = 8 * its bytes
+    arr["wut"] = _u8(ds.wut[: _extent(ds.wut, 0)], dev)
+    arr["wut_k"] = 8 * _extent(ds.wut, 1)
     cache[dev] = arr
     return arr
 
@@ -132,10 +149,16 @@ def replay(arr: dict, D: torch.Tensor) -> torch.Tensor:
 
     # stage 2: zsel = y_sel ^ B_sel t1 (+ HDPC dense part)
     zsel = _apply_plan(z, arr["bsel_passes"], arr["bsel_overflow"], take_rows(D, arr["sel_rows"]))
-    if arr["mhd"] is not None:
-        _select_rows(gf256_matmul(arr["mhd"], t1), arr["hd_sel"], zsel)
+    if "mhd" in arr:  # HDPC products in rows [:H] of a zeroed [H_pad + 1] buffer (last: sentinel)
+        hd = arr["mhd"]
+        red = z.new_zeros(arr["H_pad"] + 1, t)
+        if hd.numel():
+            gf256_matmul(hd, t1[: hd.shape[1]], out=red[: hd.shape[0]])
+        gather_xor(red, arr["hd_sel"], out=zsel)
 
     xu = z[Lpad : Lpad + u_pad]
     gf256_matmul(arr["vinv"], zsel, out=xu)  # stage 3 (xu rows are zero)
-    gf2_matmul(arr["wut"], xu, out=t1)  # stage 4: x_a = t1 ^ Wut x_u
+    wut = arr["wut"]  # stage 4: x_a = t1 ^ Wut x_u
+    if wut.numel() and arr["wut_k"]:
+        gf2_matmul(wut, xu[: arr["wut_k"]], out=t1[: wut.shape[0]])
     return take_rows(z, arr["out_sel"])  # stage 5

@@ -5,15 +5,15 @@ symbols are a linear combination of the payload rows, S = W D, with W folded
 on the host from the solver's factorization.  The device work is one matmul:
 
 - GF(2) (binary factorization): K1 gathers the payload rows W's packed bits
-  index, then K2 multiplies by the packed bits (`_w_gf2_jit` in JAX);
+  index, then K2 multiplies by the packed bits (`_w_gf2_jit` in JAX); a
+  stacked batch of blocks is one K1 and one K2 launch;
 - GF(256) (HDPC pivots taken): K3 on the byte matrix (`_w_matmul_jit`).
 
 The residual arm's product (`res_apply_batch`) is two batched K3 launches.
 
 The host W constructors (`w_rows`, `w_rows_gf2`) are numpy over the native
-solver's ctypes interface.  In the JAX package they sit in a module that
-imports jax at its top, so the port carries its own copies, line for line
-the same computation.
+solver's ctypes interface, copied line for line from the JAX package's
+module (which imports jax at its top).
 """
 
 import ctypes
@@ -21,21 +21,16 @@ import ctypes
 import numpy as np
 import torch
 
-from nanorq_tpu.precode.device_schedule import _pad_rows
-from nanorq_tpu.precode.matrix import CSRRows, hdpc_full_rows
-from nanorq_tpu.precode.solver import SolveState
+from nanorq_tpu_torch.native import get_lib as _native
 from nanorq_tpu_torch.ops.kernels import gf2_matmul, gf256_matmul
 from nanorq_tpu_torch.ops.replay import take_rows
+from nanorq_tpu_torch.precode.device_schedule import _pad_rows
+from nanorq_tpu_torch.precode.matrix import CSRRows, hdpc_full_rows
+from nanorq_tpu_torch.precode.solver import SolveState
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
-
-
-def _native():
-    from nanorq_tpu.native import get_lib
-
-    return get_lib()
 
 
 def _pattern_edges(st: SolveState, out_rows: CSRRows):
@@ -206,13 +201,22 @@ def w_apply_gf256(W: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     return gf256_matmul(W, D[: W.shape[1]])
 
 
+def stacked_rows(rows: torch.Tensor, M_pad: int) -> torch.Tensor:
+    """Per-block gather rows [nb, kq, 1] -> rows of the stacked D viewed as
+    [nb * M_pad, t]: block j's rows offset by j * M_pad, as [nb * kq, 1]."""
+    nb = rows.shape[0]
+    off = torch.arange(nb, dtype=torch.int32, device=rows.device).mul_(M_pad).view(nb, 1, 1)
+    return (rows + off).reshape(-1, 1)
+
+
 def w_apply_gf2_batch(bits: torch.Tensor, rows: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
-    """Stacked GF(2) W apply: bits [nb, m, kq/8], rows [nb, kq, 1] int32,
-    D [nb, M_pad, t] -> [nb, m, t].  One K1 + K2 pair per block."""
-    out = D.new_zeros(bits.shape[0], bits.shape[1], D.shape[2])
-    for j in range(bits.shape[0]):
-        gf2_matmul(bits[j], take_rows(D[j], rows[j]), out=out[j])
-    return out
+    """Stacked GF(2) W apply (counterpart of nanorq_tpu.ops.wpath._w_gf2_batch_jit):
+    bits [nb, m, kq/8], rows [nb, kq, 1] int32, D [nb, M_pad, t] -> [nb, m, t].
+    One K1 launch gathers every block's rows from D viewed as [nb * M_pad, t]
+    (`stacked_rows`), one K2 launch multiplies over the block axis."""
+    nb, M_pad, t = D.shape
+    G = take_rows(D.reshape(nb * M_pad, t), stacked_rows(rows, M_pad))
+    return gf2_matmul(bits, G.view(nb, rows.shape[1], t))
 
 
 def w_apply_gf256_batch(W: torch.Tensor, D: torch.Tensor) -> torch.Tensor:

@@ -37,12 +37,11 @@ def test_stream_equals_jax_and_decoders_swap(src, tmp_path, T, seed, loss):
 def test_layout_and_schedule_caches(src, tmp_path, monkeypatch):
     """--schedule-cache writes the encoder schedule; --layout-cache forces the
     device arm and saves the frozen layouts of its structured plans."""
-    from nanorq_tpu.codec import cache as jcache
-    from nanorq_tpu.precode import device_schedule as dsm
     from nanorq_tpu_torch.codec import cache as tcache
+    from nanorq_tpu_torch.precode import device_schedule as dsm
 
-    monkeypatch.setattr(jcache, "WPATH_MAX_KP", 0)
-    monkeypatch.setattr(jcache, "WPATH_GF256_MAX_KP", 0)
+    monkeypatch.setattr(tcache, "WPATH_MAX_KP", 0)
+    monkeypatch.setattr(tcache, "WPATH_GF256_MAX_KP", 0)
     tcache.clear_decoder_cache()
     dsm.clear_layout_cache()
     rq, sched, lay = tmp_path / "data.rq", tmp_path / "sched", tmp_path / "lay"

@@ -76,8 +76,8 @@ def test_decode_round_trip_device(case, monkeypatch):
     if case != "structured" and not native_available():
         pytest.skip("W plans need the native solver")
     if case == "structured":
-        monkeypatch.setattr(jcache, "WPATH_MAX_KP", 0)
-        monkeypatch.setattr(jcache, "WPATH_GF256_MAX_KP", 0)
+        monkeypatch.setattr(tcache, "WPATH_MAX_KP", 0)
+        monkeypatch.setattr(tcache, "WPATH_GF256_MAX_KP", 0)
     tcache.clear_decoder_cache()
     rng, data = _object(3)
     dec, io, out = _lossy_decoder(data, rng, overhead={"gf2_w": 15, "gf256_w": 2}.get(case))
@@ -89,22 +89,23 @@ def test_decode_round_trip_device(case, monkeypatch):
 
 
 def _kind(plan) -> str:
-    if isinstance(plan, jcache.WSchedule):
+    if isinstance(plan, (jcache.WSchedule, tcache.WSchedule)):
         return "gf2_w" if plan.Wbits is not None else "gf256_w"
     return "structured"
 
 
 def _same(a, b) -> bool:
-    """Field-for-field equality of decode plans (arrays by dtype and value)."""
+    """Field-for-field equality of decode plans (arrays by dtype and value);
+    the two packages' classes of one name count as one type."""
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
         return type(a) is type(b) and a.dtype == b.dtype and np.array_equal(a, b)
-    if type(a) is not type(b):
+    if type(a).__name__ != type(b).__name__:
         return False
     if isinstance(a, (list, tuple)):
         return len(a) == len(b) and all(map(_same, a, b))
     if dataclasses.is_dataclass(a):
         return all(_same(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a))
-    if isinstance(a, jcache.WSchedule):
+    if isinstance(a, tcache.WSchedule):
         return all(_same(getattr(a, f), getattr(b, f)) for f in ("M_pad", "n_out", "Wbits", "rows", "W"))
     return a == b
 
@@ -118,8 +119,9 @@ def test_decoder_plan_equals_jax(case, monkeypatch):
     if case != "structured" and not native_available():
         pytest.skip("W plans need the native solver")
     if case == "structured":
-        monkeypatch.setattr(jcache, "WPATH_MAX_KP", 0)
-        monkeypatch.setattr(jcache, "WPATH_GF256_MAX_KP", 0)
+        for cache in (jcache, tcache):
+            monkeypatch.setattr(cache, "WPATH_MAX_KP", 0)
+            monkeypatch.setattr(cache, "WPATH_GF256_MAX_KP", 0)
     tcache.clear_decoder_cache()
     rng, data = _object(9)
     dec, _, _ = _lossy_decoder(data, rng, overhead={"gf2_w": 15, "gf256_w": 2}.get(case))
@@ -196,8 +198,8 @@ def test_round_trip_on_card(case, monkeypatch):
     from nanorq_tpu_torch.ops import kernels
 
     if case == "structured":
-        monkeypatch.setattr(jcache, "WPATH_MAX_KP", 0)
-        monkeypatch.setattr(jcache, "WPATH_GF256_MAX_KP", 0)
+        monkeypatch.setattr(tcache, "WPATH_MAX_KP", 0)
+        monkeypatch.setattr(tcache, "WPATH_GF256_MAX_KP", 0)
     tcache.clear_decoder_cache()
     rng, data = _object(8)
     kernels.reset_launches()

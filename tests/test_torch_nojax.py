@@ -1,4 +1,5 @@
-"""The port runs without JAX, and never falls back from the CUDA kernels.
+"""The port runs without JAX and without the JAX package `nanorq_tpu`, and
+never falls back from the CUDA kernels.
 
 The test process itself has JAX loaded (tests/conftest.py), so the no-JAX
 run happens in a fresh interpreter."""
@@ -57,7 +58,7 @@ with tempfile.TemporaryDirectory() as d:
     assert cli_decode.main([str(dst), "-i", str(rq), "--device", "cpu"]) == 0
     assert dst.read_bytes() == src.read_bytes()
 assert gather_probe.run_shape("v2", (301, 37, 5, 64, 0.3, "tiny"), rng, "cpu")["exact"]
-print("jax" in sys.modules)
+print("jax" in sys.modules, sorted(m for m in sys.modules if m.split(".")[0] == "nanorq_tpu"))
 """
 
 
@@ -66,7 +67,7 @@ def test_port_runs_without_jax():
     r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip().splitlines()[-1] == "False"
+    assert r.stdout.strip().splitlines()[-1] == "False []"
 
 
 def _imports(path: pathlib.Path) -> set[str]:
@@ -80,10 +81,25 @@ def _imports(path: pathlib.Path) -> set[str]:
     return mods
 
 
+def _jax_package(mod: str) -> bool:
+    return mod.split(".")[0] in ("jax", "jaxlib", "nanorq_tpu")
+
+
 def test_no_module_of_the_port_imports_jax():
     for path in (REPO / "nanorq_tpu_torch").rglob("*.py"):
         for mod in _imports(path):
-            assert not mod.startswith(("jax", "nanorq_tpu.ops", "nanorq_tpu.parallel")), f"{path}: {mod}"
+            assert not _jax_package(mod), f"{path}: {mod}"
+
+
+@pytest.mark.parametrize("where", ["nanorq_tpu_torch", "chip_smoke.py"])
+def test_ast_scan_finds_no_import_of_the_jax_package(where):
+    """No file of the port, nor chip_smoke.py, imports nanorq_tpu or a module
+    of it (the port keeps its own copy of the host half), at any depth."""
+    root = REPO / where
+    paths = sorted(root.rglob("*.py")) if root.is_dir() else [root]
+    assert paths
+    bad = [(p.relative_to(REPO), m) for p in paths for m in _imports(p) if m.split(".")[0] == "nanorq_tpu"]
+    assert not bad
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -91,18 +107,18 @@ def test_chip_smoke_imports_only_the_port():
     importing all it imports, and every module of the port, loads no JAX."""
     mods = _imports(REPO / "chip_smoke.py")
     for mod in mods:
-        assert mod.split(".")[0] not in ("jax", "jaxlib", "nanorq_tpu"), f"chip_smoke.py imports {mod}"
+        assert not _jax_package(mod), f"chip_smoke.py imports {mod}"
     port = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                   for p in (REPO / "nanorq_tpu_torch").rglob("*.py"))
     script = "\n".join(["import importlib, sys",
                         f"for m in {sorted(mods) + port + ['chip_smoke']!r}:",
                         "    importlib.import_module(m.removesuffix('.__init__'))",
-                        "print('jax' in sys.modules)"])
+                        "print('jax' in sys.modules, sorted(m for m in sys.modules if m.split('.')[0] == 'nanorq_tpu'))"])
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     r = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip().splitlines()[-1] == "False"
+    assert r.stdout.strip().splitlines()[-1] == "False []"
 
 
 def test_kernels_raise_without_nvcc(monkeypatch, tmp_path):

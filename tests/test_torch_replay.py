@@ -71,4 +71,10 @@ def test_device_arrays_cached_apart_from_jax():
     assert device_arrays(ds, torch.device("cpu")) is a
     assert ds._dev_arrays[1] is jarr
     assert a["piv_rows"].dtype == torch.int32 and a["piv_rows"].shape == (ds.Lpad, 1)
-    assert a["wut"].shape == ds.wut.shape  # bits stay packed
+    # bits stay packed, cut to Wut's nonzero rows; what is cut is zero
+    wr = a["wut"].shape[0]
+    assert a["wut"].shape[1] == ds.wut.shape[1] and np.array_equal(a["wut"].numpy(), ds.wut[:wr])
+    assert not ds.wut[wr:].any() and not ds.wut[:, a["wut_k"] // 8 :].any()
+    hr, hc = a["mhd"].shape
+    assert np.array_equal(a["mhd"].numpy(), ds.mhd[:hr, :hc]) and hc % 16 == 0
+    assert not ds.mhd[hr:].any() and not ds.mhd[:, hc:].any()

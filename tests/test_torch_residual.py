@@ -22,10 +22,10 @@ from nanorq_tpu.io.ioctx import MemoryIO
 from nanorq_tpu.native import native_available
 from nanorq_tpu.ops.wpath import _res_batch_jit
 from nanorq_tpu.rfc.params import params_init
-from nanorq_tpu.utils import stats
 from nanorq_tpu_torch.codec import cache as tcache
 from nanorq_tpu_torch.codec.api import Decoder
 from nanorq_tpu_torch.ops import wpath
+from nanorq_tpu_torch.utils import stats  # the port counts its arms in its own stats
 
 pytestmark = pytest.mark.skipif(not native_available(), reason="the residual arms need the native solver")
 
@@ -129,7 +129,7 @@ def test_f2_res_wrows_equal_jax(K, monkeypatch):
     assert np.array_equal(tcache.res_wrows(P, isis[::-1]), want[::-1])  # from the memo
     for a, b in zip(tcache.res_wrows_flat(P, batch), jcache.res_wrows_flat(P, batch)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
-    monkeypatch.setattr(jcache, "_WROW_CACHE_MB", 4 * jcache.res_kcols(P) / (1 << 20))
+    monkeypatch.setattr(tcache, "_WROW_CACHE_MB", 4 * jcache.res_kcols(P) / (1 << 20))
     tcache.clear_decoder_cache()
     assert np.array_equal(tcache.res_wrows(P, isis), want)
     assert len(tcache._wrow_cache) == 4
@@ -153,7 +153,7 @@ def test_f3_default_backend_is_auto(monkeypatch):
 def test_res_raises_without_the_factorization(monkeypatch):
     """"res" raises where nanorq_tpu would quietly reroute to the host."""
     data, oti, pk = _packets(60, nb=2, seed=4)
-    monkeypatch.setattr(jcache, "canonical_state", lambda P: None)
+    monkeypatch.setattr(tcache, "canonical_state", lambda P: None)
     with pytest.raises(RuntimeError, match="res"):
         _decode(Decoder(*oti, device="cpu"), data, pk, backend="res")
     before = _counts()  # res_host keeps the reference's reroute to the host arm
