@@ -11,11 +11,11 @@ Phases, each printing its own lines and its seconds:
    and t = 200*1280) and at a ragged shape; kernel and plain times (the
    three gather probes at K1's shapes, with K1's time beside theirs), each
    gather's bytes bound and, at width 1, torch.index_select's time (K1's
-   library_ms); K2 and K3 in every form through tools/matmul_forms.py (the
-   encoder's own matrices, the single and batched W decodes -- nb = 200 --
-   and the residual chunk, then the edge shapes: ragged k and t, m < 16,
-   forced k splits), with their bounds; an index outside the source makes
-   gather_xor raise, a ragged width makes the probes raise;
+   library_ms); K2 and K3 through tools/matmul_forms.py (the encoder's own
+   matrices, the single and batched W decodes -- nb = 200 -- and the
+   residual chunk, then the edge shapes: ragged k and t, m < 16, k split
+   across blocks, nb = 1 and 200), with their bounds; an index outside the
+   source makes gather_xor raise, a ragged width makes the probes raise;
 3. encode: an object of Z=200 blocks x K=1000 x T=1280 through the port's
    Encoder and codec.batch (generate + 200 repair symbols per block);
 4. decode: 6% source loss + 5% repair overhead per block, recovered by
@@ -24,7 +24,9 @@ Phases, each printing its own lines and its seconds:
 5. checks and times: the systematic property on every block, one block
    against the numpy oracle (nanorq_tpu_torch.host), the decoded bytes, the
    kernel launch counts of the main path (phases 3-4), no out-of-range
-   gather index in it, and the encode/decode wall times;
+   gather index in it, and the encode/decode wall times; then one warm
+   encode and one warm device decode under torch.profiler: the device time
+   of each kernel and copy, summed over the run, beside its wall time;
 6. probe path: nanorq_tpu_torch.tools.gather_probe over both probe tables,
    every line bit-exact, with its launch counts;
 7. decode arms: the phase-4 object and losses through repair_all with
@@ -119,10 +121,9 @@ def rows_k1(rows: list, label: str) -> str:
 
 
 def phase_matmul(dev) -> dict:
-    """K2 and K3 in every form against the plain versions at the main path's
-    shapes and at the edge shapes (tools/matmul_forms.py): one line each;
-    the report holds, per kernel, the form its rule picks at the heaviest
-    main-path shape (t = 200*T)."""
+    """K2 and K3 against the plain versions at the main path's shapes and at
+    the edge shapes (tools/matmul_forms.py): one line each; the report
+    holds, per kernel, its heaviest main-path shape (t = 200*T)."""
     from nanorq_tpu_torch.tools import matmul_forms
 
     report = {}
@@ -132,7 +133,7 @@ def phase_matmul(dev) -> dict:
         kern = "gf2_matmul" if line["kind"] == "gf2" else "gf256_matmul"
         rep = report.setdefault(kern, {"max_abs_err": 0, "ms": 0.0})
         if line["t"] == WIDE and "_full" not in name and line["ms"] >= rep["ms"]:  # uncut: not the main path
-            rep.update(ms=line["ms"], plain_ms=line["plain_ms"], shape=f"{name} ({line['rule']})",
+            rep.update(ms=line["ms"], plain_ms=line["plain_ms"], shape=f"{name} ({line['form']})",
                        bound_ms=line["bound_ms"], bound_by=line["bound_by"], library_ms=None)
         torch.cuda.empty_cache()
     return report
@@ -308,9 +309,10 @@ def _deliveries(seed: int) -> list:
     return out
 
 
-def _decode_once(enc, data, reps, deliveries, dev, backend: str):
-    """A fresh Decoder fed with `deliveries`, then repair_all(backend), timed
-    (ingestion excluded): (restored object, seconds, per-block patterns)."""
+def _decode_once(enc, data, reps, deliveries, dev, backend: str, around=contextlib.nullcontext):
+    """A fresh Decoder fed with `deliveries`, then repair_all(backend) inside
+    the context `around()`, timed (ingestion excluded): (restored object,
+    seconds, per-block patterns)."""
     from nanorq_tpu_torch.codec.api import Decoder
     from nanorq_tpu_torch.host import MemoryIO, make_tag
 
@@ -323,10 +325,12 @@ def _decode_once(enc, data, reps, deliveries, dev, backend: str):
         dec.add_symbols(reps[sbn][: rep_esis.size], [make_tag(sbn, int(e)) for e in rep_esis], io)
     preps = [dec._repair_prepare(sbn) for sbn in range(Z)]
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if not dec.repair_all(io, backend=backend):
-        raise AssertionError(f"repair_all({backend!r}) reported unrecovered blocks")
-    return out, time.perf_counter() - t0, preps
+    with around():
+        t0 = time.perf_counter()
+        if not dec.repair_all(io, backend=backend):
+            raise AssertionError(f"repair_all({backend!r}) reported unrecovered blocks")
+        secs = time.perf_counter() - t0
+    return out, secs, preps
 
 
 def phase_decode(enc, data, reps, dev, deliveries):
@@ -440,6 +444,52 @@ def phase_cli(rng) -> dict:
     return secs
 
 
+def _short(name: str) -> str:
+    """A profiler event's kernel name without its return type and arguments."""
+    name = name.split("(", 1)[0]
+    return name[5:] if name.startswith("void ") else name
+
+
+def phase_profile(enc, batch, data, reps, dev, deliveries) -> dict:
+    """One warm encode and one warm device decode (repair_all alone, as
+    phase 4 times it) under torch.profiler, device activity only: per run,
+    its wall seconds, the summed device time, and per kernel or copy its ms
+    and count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nanorq_tpu_torch.codec import batch as tbatch
+
+    report = {}
+    for name in ("encode", "decode"):
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        if name == "encode":
+            batch.C = None
+            torch.cuda.synchronize()
+            with prof:
+                t0 = time.perf_counter()
+                tbatch.generate(batch, dev)
+                tbatch.repair_symbols(batch, N_REPAIR, dev)  # fetched to the host
+                wall = time.perf_counter() - t0
+        else:
+            out, wall, _ = _decode_once(enc, data, reps, deliveries, dev, "device", around=lambda: prof)
+            if not np.array_equal(out, data):
+                raise AssertionError("the profiled decode did not restore the object")
+        per = {}
+        for e in prof.key_averages():
+            ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+            if ms > 0:
+                key = _short(e.key)
+                tot, cnt = per.get(key, (0.0, 0))
+                per[key] = (tot + ms, cnt + e.count)
+        device_ms = sum(ms for ms, _ in per.values())
+        top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
+        report[name] = {"wall_s": wall, "device_ms": device_ms}
+        _say("profile", run=name, wall_s=f"{wall:.4f}", device_ms=f"{device_ms:.3f}",
+             busy=f"{device_ms / 1e3 / wall:.3f}",
+             top=json.dumps({k: [round(ms, 4), n] for k, (ms, n) in top}))
+    return report
+
+
 def phase_checks(enc, batch, reps, data, outs, dev) -> tuple[int, float]:
     """The systematic property on every block, one block against the numpy
     oracle (the numpy replay takes ~30 s a block), and the decoded bytes."""
@@ -518,6 +568,7 @@ def main() -> None:
     _say("times", card=json.dumps(smi), encode_cold_mbps=_mbps(F, enc_s[0]), encode_warm_mbps=_mbps(F, enc_s[1]),
          decode_cold_mbps=_mbps(F, dec_s[0]), decode_warm_mbps=_mbps(F, dec_s[1]),
          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / (1 << 30):.2f}")
+    phase_profile(enc, batch, data, reps, dev, deliveries)
     _say("phase", name="checks", seconds=f"{time.perf_counter() - t0:.2f}")
     del batch
 

@@ -6,33 +6,26 @@
 // which expands M into an [8m, 8k] companion-bit matrix and runs it as a
 // GF(2) bit-plane matmul on the MXU.
 //
-// Form 0 (nrq_gf256_matmul) is that computation on K2's core (gf2_core.cuh):
-// the caller expands M into its companion bits, packed [8m, k] bytes (row
-// 8r+p, byte c holds bit p of M[r][c] (x) alpha^q at bit q), and the core's
-// tensor cores take bit q of X[c] as the k index 8c+q -- X is read as bytes
-// and split into planes only in registers.  Bound on the H100: 128*m*k*t
-// int8 tensor-core operations at 1,979 TOP/s, or the bytes where m is small.
-// The core splits k to fill the card at decode widths and has a grid-z
-// block axis (the batched residual and W decodes).
+// Two forms, one per shape by the wrapper's rule (ops/kernels.gf256_form):
 //
-// Form 2 (nrq_gf256_m4r) runs on K2's four-Russians form: M's bytes read as
-// bits (bit q of M[r][c] is A column 8c+q) against the rows alpha^q (x) X[c],
-// which the block tabulates per nibble of coefficients (15 combinations of
-// alpha^(4h+j) (x) X[c], j < 4), so each row takes two table entries per
-// coefficient and never multiplies, and M needs no companion expansion.
-// Bound as form 0's, reached within a small factor: the lookups and XORs
-// run on the CUDA cores and shared memory (PERF.md).  The wrapper's rule
-// (ops/kernels.gf256_form) takes this form at every main-path shape but
-// one: a wide product of at most 16 rows goes to form 1.
+// nrq_gf256_m4r, every shape but one kind: the companion-bit product on K2's
+// four-Russians core (gf2_core.cuh).  M's bytes are read as bits (bit q of
+// M[r][c] is A column 8c+q) against the rows alpha^q (x) X[c], which the
+// block tabulates per nibble of coefficients (15 combinations of
+// alpha^(4h+j) (x) X[c], j < 4, made with xtime on 16-byte lanes), so each
+// row takes two table entries per coefficient and never multiplies, and M
+// needs no companion expansion.  Bound: the lookups and XORs on the CUDA
+// cores and shared memory, or the bytes at the wide encode shapes (PERF.md).
 //
-// Form 1 (nrq_gf256_logexp) is the direct byte design, kept to be measured
-// beside it: products from log/exp tables in shared memory (log[0] = 512
-// lands in the zero upper half of the 1024-entry exp table, so a zero byte
-// needs no branch).  Bound: ~1.1 shared-memory lookups per byte product,
-// which conflict across banks.  A block owns RM rows x a span of 16-byte
-// lanes; grid y also splits k in 32-column units when fewer than 264 blocks
-// (two per SM) would run, XORing partial products with atomicXor, so the
-// narrow products fill the card as form 0's do.
+// nrq_gf256_logexp, a wide product (t >= 2**16) of at most 16 rows (the
+// encoder's HDPC rows over a whole object): products from log/exp tables in
+// shared memory (log[0] = 512 lands in the zero upper half of the 1024-entry
+// exp table, so a zero byte needs no branch).  The four-Russians tables are
+// built per block of 64 rows; with 10 rows they are not paid back, and
+// log/exp, ~1.1 shared-memory lookups per byte product, is faster there.  A
+// block owns RM rows x a span of 16-byte lanes; grid y also splits k in
+// 32-column units when fewer than 264 blocks (two per SM) would run, XORing
+// partial products with atomicXor.
 #include "gf2_core.cuh"
 
 namespace nrq {
@@ -154,14 +147,14 @@ template <typename V>
 static cudaError_t launch_logexp(int64_t nb, const uint8_t* M, int64_t m, int64_t k, int64_t sM,
                                  const void* X, int64_t lanes, int64_t t, int64_t sX,
                                  const uint16_t* log_tab, const uint8_t* exp_tab, void* out,
-                                 int64_t sO, int accumulate, int64_t ksplit, cudaStream_t stream) {
+                                 int64_t sO, int accumulate, cudaStream_t stream) {
   const int bx = lane_threads(lanes);
   const int64_t gx = (m + GF256_RM - 1) / GF256_RM;
   const int64_t lane_blocks = (lanes + bx - 1) / bx;
   const int64_t units = (k + GF256_KQ - 1) / GF256_KQ;
   const int64_t base = gx * lane_blocks * nb;
   constexpr int64_t fill = core::FILL_BLOCKS / 2;  // two waves of one block per SM: its own grid
-  if (ksplit <= 0) ksplit = base >= fill ? 1 : (fill + base - 1) / base;
+  int64_t ksplit = base >= fill ? 1 : (fill + base - 1) / base;
   if (ksplit > units) ksplit = units;
   if (ksplit < 1) ksplit = 1;
   const int64_t kper = ((units + ksplit - 1) / ksplit) * GF256_KQ;
@@ -189,43 +182,29 @@ static cudaError_t launch_logexp(int64_t nb, const uint8_t* M, int64_t m, int64_
 
 }  // namespace nrq
 
-// Form 0.  nb blocks b of comp uint8 [8m, k] (the companion bits of M_b,
-// pitch a multiple of 16 bytes, as is sC) at comp + b*sC, X uint8 [k, t] at
-// X + b*sX and out uint8 [m, t] at out + b*sO (strides in bytes).
-extern "C" int nrq_gf256_matmul(int64_t nb, const void* comp, int64_t m, int64_t k, int64_t sC,
-                                const void* X, int64_t t, int64_t sX, void* out, int64_t sO,
-                                int accumulate, int64_t ksplit, void* stream) {
-  using namespace nrq::core;
-  return launch_core<FORM_GF256_TC>(nb, static_cast<const uint8_t*>(comp), 8 * m, k, sC,
-                                    static_cast<const uint8_t*>(X), k, t, sX, static_cast<uint8_t*>(out),
-                                    m, sO, accumulate, ksplit, static_cast<cudaStream_t>(stream));
-}
-
-// Form 2.  nb blocks b of M uint8 [m, pitch] at M + b*sM (pitch >= k, a
-// multiple of 16, as is sM), X and out as in form 0.
+// nb blocks b of M uint8 [m, pitch] at M + b*sM (pitch >= k, a multiple of
+// 16, as are sM and the base), X uint8 [k, t] at X + b*sX and out uint8
+// [m, t] at out + b*sO (strides in bytes); k >= 1.
 extern "C" int nrq_gf256_m4r(int64_t nb, const void* M, int64_t m, int64_t k, int64_t pitch, int64_t sM,
                              const void* X, int64_t t, int64_t sX, void* out, int64_t sO, int accumulate,
-                             int64_t ksplit, void* stream) {
-  using namespace nrq::core;
-  return launch_core<FORM_GF256_M4R>(nb, static_cast<const uint8_t*>(M), m, pitch, sM,
-                                     static_cast<const uint8_t*>(X), k, t, sX, static_cast<uint8_t*>(out),
-                                     m, sO, accumulate, ksplit, static_cast<cudaStream_t>(stream));
+                             void* stream) {
+  return nrq::core::launch_core<true>(nb, static_cast<const uint8_t*>(M), m, pitch, sM,
+                                      static_cast<const uint8_t*>(X), k, t, sX, static_cast<uint8_t*>(out),
+                                      sO, accumulate, static_cast<cudaStream_t>(stream));
 }
 
-// Form 1.  M uint8 [m, k] at M + b*sM (bytes); log_tab uint16 [256]
-// (log_tab[0] = 512), exp_tab uint8 [1024] (alpha^i below 510, zero above).
+// M uint8 [m, k] at M + b*sM (bytes), X and out as above; log_tab uint16
+// [256] (log_tab[0] = 512), exp_tab uint8 [1024] (alpha^i below 510, zero
+// above).
 extern "C" int nrq_gf256_logexp(int64_t nb, const void* M, int64_t m, int64_t k, int64_t sM,
                                 const void* X, int64_t t, int64_t sX, const void* log_tab,
-                                const void* exp_tab, void* out, int64_t sO, int accumulate,
-                                int64_t ksplit, void* stream) {
+                                const void* exp_tab, void* out, int64_t sO, int accumulate, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* Mb = static_cast<const uint8_t*>(M);
   const uint16_t* lt = static_cast<const uint16_t*>(log_tab);
   const uint8_t* et = static_cast<const uint8_t*>(exp_tab);
   if (nb <= 0 || m <= 0 || t <= 0) return cudaSuccess;
   if (t % 16 == 0 && sX % 16 == 0 && sO % 16 == 0 && nrq::aligned16(X) && nrq::aligned16(out))
-    return nrq::launch_logexp<uint4>(nb, Mb, m, k, sM, X, t / 16, t, sX, lt, et, out, sO, accumulate,
-                                     ksplit, s);
-  return nrq::launch_logexp<uint8_t>(nb, Mb, m, k, sM, X, t, t, sX, lt, et, out, sO, accumulate, ksplit,
-                                     s);
+    return nrq::launch_logexp<uint4>(nb, Mb, m, k, sM, X, t / 16, t, sX, lt, et, out, sO, accumulate, s);
+  return nrq::launch_logexp<uint8_t>(nb, Mb, m, k, sM, X, t, t, sX, lt, et, out, sO, accumulate, s);
 }

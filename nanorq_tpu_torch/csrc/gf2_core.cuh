@@ -1,37 +1,33 @@
 // The GF(2) product core shared by K2 (gf2_matmul.cu) and K3 (gf256_matmul.cu).
 //
-// Computes, for each block b of a grid-z batch, out_b (^)= A_b (x)GF(2) X_b
+// Computes, for each block b of a grid-z batch, out_b (^)= A_b (x)GF(2) Y_b
 // where A_b is a bit matrix packed little-endian along its columns (row i,
-// column j at byte j/8, bit j%8; row pitch a multiple of 16 bytes) and X_b is
-// a byte matrix [kx, t].  Three readings of A against X:
+// column j at byte j/8, bit j%8; row pitch a multiple of 16 bytes) and Y_b is
+// read from a byte matrix X_b [kx, t] in one of two ways:
 //
-//   K2 (FORM_GF2_*): A is [m, >= kx] bits, bit (r, c) selects X row c:
-//       out[r][col] = XOR_{c : bit(r,c)} X[c][col].
-//   K3 (FORM_GF256_TC): A is the companion expansion [8m, 8kx] of a GF(256)
-//       matrix M (row 8r+p, column 8c+q = bit p of M[r][c] (x) alpha^q):
-//       bit p of out[r][col] = parity_{c,q} A[8r+p][8c+q] * bit q of X[c][col].
-//   K3 (FORM_GF256_M4R): A is M itself, [m, kx] bytes read as [m, 8kx] bits:
+//   K2 (G256 = false): A is [m, >= kx] bits and Y = X: bit (r, c) selects
+//       X row c:  out[r][col] = XOR_{c : bit(r,c)} X[c][col].
+//   K3 (G256 = true): A is the GF(256) matrix M itself, [m, kx] bytes read
+//       as [m, 8kx] bits, and Y row 8c+q = alpha^q (x) X[c]:
 //       out[r] = XOR_{c,q : bit q of M[r][c]} alpha^q (x) X[c].
 //
 // The TPU kernels do K2 and K3 as int8 matmuls over 0/1 bit planes with an
 // int32 accumulator (nanorq_tpu/ops/pallas_kernels.py, _gf2_kernel and
-// companion_bits_planar / _gf256_kernel).  The tensor-core forms (*_TC) do
-// the same on Hopper with mma.sync m16n8k32 s8: A's bits and X's bit planes
-// are expanded to 0/1 int8 fragments in registers, products accumulate in
-// int32, and the epilogue keeps bit 0 of each sum and packs the 8 planes of
-// a byte.  Bound: the int8 tensor-core rate (16*m*k*t ops for K2, 128*m*k*t
-// for K3); these forms stay issue-bound expanding bits (about 4 integer
-// instructions per mma), far from it.  The XOR forms work on the CUDA cores:
-// each thread holds 8 rows' bits of a 32-column tile in registers and one
-// 16-byte lane of X; FORM_GF2_XOR XORs each X row into each row under a
-// mask made from its bit (branch-free, one lop3 per word); the four-Russians
-// forms (*_M4R) first tabulate, per group of 4 A columns, the 15 nonzero XOR
-// combinations of the 4 rows they select (each thread one group x one lane;
-// K3's rows are alpha^q (x) X[c], q one nibble of c's bits), then each row
-// takes one table entry per group, picked by its 4 bits: a lookup and 4
-// XORs per 4 columns where the masked form spends 4 masks and 16 lop3.
-// Around every form:
-//   - a block owns a row tile [OR rows] and a run of column tiles of BT
+// companion_bits_planar / _gf256_kernel).  On Hopper that formulation
+// (mma.sync m16n8k32 s8 over bits expanded in registers) stayed issue-bound
+// expanding bits, and a branch-free masked XOR on the CUDA cores beat it;
+// both lost to the four-Russians form kept here (PERF.md).
+//
+// Four-Russians: per group of 4 Y rows of a stage, the block tabulates their
+// 15 nonzero XOR combinations (each thread one group x one 16-byte lane; K3's
+// rows are alpha^q (x) X[c], q one nibble of c's coefficient bits, made with
+// xtime on the lane), then each output row takes one table entry per group,
+// picked by its 4 bits: a shared-memory lookup and 4 32-bit XORs per 4
+// columns and 16 bytes.  What bounds it on this card: the table lookups
+// (16 bytes of shared memory per row, group and lane) and the XORs on the
+// CUDA cores; at the wide encode shapes the bytes of X and out come close.
+// Around it:
+//   - a block owns a row tile [BMA rows] and a run of column tiles of BT
 //     bytes, streamed one (column tile, k tile) item after another with the
 //     next item's copies in flight, so short products (k of one or two
 //     tiles) still overlap copies with compute; grid x walks row tiles
@@ -53,41 +49,24 @@
 namespace nrq {
 namespace core {
 
-enum Form { FORM_GF2_TC = 0, FORM_GF2_XOR = 1, FORM_GF2_M4R = 2, FORM_GF256_TC = 3, FORM_GF256_M4R = 4 };
-
 constexpr int THREADS = 128;
 constexpr int64_t FILL_BLOCKS = 4 * 132;  // two waves of two blocks on each of 132 SMs
 
-// BMA: A rows per block; BT: output bytes per row per block; KB: A columns
-// (bits) per stage.
-template <int FORM> struct Cfg;
-template <> struct Cfg<FORM_GF2_TC> { static constexpr int BMA = 64, BT = 32, KB = 128; };
-template <> struct Cfg<FORM_GF2_XOR> { static constexpr int BMA = 64, BT = 256, KB = 32; };
-template <> struct Cfg<FORM_GF2_M4R> { static constexpr int BMA = 64, BT = 256, KB = 32; };
-template <> struct Cfg<FORM_GF256_TC> { static constexpr int BMA = 256, BT = 64, KB = 128; };
-template <> struct Cfg<FORM_GF256_M4R> { static constexpr int BMA = 64, BT = 256, KB = 32; };
-
-template <int FORM> struct Tile {
-  static constexpr int BMA = Cfg<FORM>::BMA, BT = Cfg<FORM>::BT, KB = Cfg<FORM>::KB;
-  // K3: 8 A columns (bits) per X row, and the tensor form 8 A rows per output row
-  static constexpr bool G256 = FORM == FORM_GF256_TC || FORM == FORM_GF256_M4R;
-  static constexpr bool M4R = FORM == FORM_GF2_M4R || FORM == FORM_GF256_M4R;
-  static constexpr int XR = G256 ? KB / 8 : KB;     // X rows per stage
-  static constexpr int OR = FORM == FORM_GF256_TC ? BMA / 8 : BMA;  // output rows per block
-  static constexpr int AW = KB / 32;                // 32-bit words of an A row per stage
-  static constexpr int AV = AW * 4 < 16 ? AW * 4 : 16;  // bytes per A copy
-  // 4 pad words per 8 rows (rows stay 16-byte aligned, no bank conflicts)
-  static constexpr int APAD = AW == 4 ? 4 : 0;
-  static constexpr int A_WORDS = BMA * AW + APAD * (BMA / 8);
+// BMA: A rows (= output rows) per block; BT: output bytes per row per block;
+// KB: A columns (bits) per stage, one 32-bit word of each A row.
+template <bool G256> struct Tile {
+  static constexpr int BMA = 64, BT = 256, KB = 32;
+  static constexpr int XR = G256 ? KB / 8 : KB;  // X rows per stage
   static constexpr int X_BYTES = XR * BT;
-  static constexpr int STAGE = X_BYTES + 4 * A_WORDS;
-  static constexpr int OUT = OR * BT;
-  // M4R: per group of 4 X rows of the stage, its 15 nonzero XOR combinations
+  static constexpr int STAGE = X_BYTES + 4 * BMA;
+  static constexpr int OUT = BMA * BT;
+  // per group of 4 Y rows of the stage, its 15 nonzero XOR combinations
   // ([KB/4][15][BT] bytes); the output tile shares its space
-  static constexpr int M4R_TABLE = M4R ? (KB / 4) * 15 * BT : 0;
-  static constexpr int SMEM = 2 * STAGE + (M4R_TABLE > OUT ? M4R_TABLE : OUT);
+  static constexpr int TABLE = (KB / 4) * 15 * BT;
+  static constexpr int SMEM = 2 * STAGE + (TABLE > OUT ? TABLE : OUT);
   static_assert(X_BYTES % 16 == 0 && STAGE % 16 == 0, "stages must keep 16-byte alignment");
-  __device__ static int aoff(int row, int w) { return row * AW + APAD * (row >> 3) + w; }
+  static_assert(THREADS == (KB / 4) * 16 && BMA == (THREADS / 16) * 8 && BT == 16 * 16,
+                "a thread owns one group (table build) or 8 rows (lookups) of one 16-byte lane");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -118,48 +97,28 @@ __device__ __forceinline__ uint4 xtime(uint4 v) {
   return make_uint4(xtime(v.x), xtime(v.y), xtime(v.z), xtime(v.w));
 }
 
-// 4 low bits of x -> 4 bytes of 0/1 (bit i -> byte i)
-__device__ __forceinline__ uint32_t expand4(uint32_t x) { return ((x & 0xfu) * 0x00204081u) & 0x01010101u; }
-
-__device__ __forceinline__ void mma_s8(uint32_t (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of m16n8k32 for rows ra (a0, a2) and rb (a1, a3) of the A stage,
-// k step ks: byte i of a0 = bit (tig*4 + i) of the step's 32 columns.
-template <class TL>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const uint32_t* as, int ra, int rb, int ks,
-                                       int tig) {
-  const uint32_t w0 = as[TL::aoff(ra, ks)], w1 = as[TL::aoff(rb, ks)];
-  a[0] = expand4(w0 >> (tig * 4));
-  a[1] = expand4(w1 >> (tig * 4));
-  a[2] = expand4(w0 >> (16 + tig * 4));
-  a[3] = expand4(w1 >> (16 + tig * 4));
-}
-
 // mode: 0 store, 1 XOR into out, 2 atomicXor into out (split k).  A block
 // owns row tile rt and column tiles [cg*cpb, (cg+1)*cpb) of grid x = (rt, cg),
 // and k tiles [y*per_split, ..) of its split; it walks its (column tile, k
 // tile) items in order with the next item's copies in flight, and writes a
 // column tile out after its last k tile.
-template <int FORM, int VEC>
+template <bool G256, int VEC>
 __global__ void __launch_bounds__(THREADS)
     gf_core_kernel(const uint8_t* __restrict__ A, int64_t MA, int64_t pitch, int64_t sA,
                    const uint8_t* __restrict__ X, int64_t kx, int64_t t, int64_t sX,
-                   uint8_t* __restrict__ out, int64_t mo, int64_t sO, int64_t row_tiles,
+                   uint8_t* __restrict__ out, int64_t sO, int64_t row_tiles,
                    int64_t col_tiles, int64_t cpb, int64_t ktiles, int64_t per_split, int mode) {
-  using TL = Tile<FORM>;
-  constexpr int BT = TL::BT, XR = TL::XR, KB = TL::KB, BMA = TL::BMA, AW = TL::AW, AV = TL::AV;
+  using TL = Tile<G256>;
+  constexpr int BT = TL::BT, XR = TL::XR, KB = TL::KB, BMA = TL::BMA, LN = BT / 16;
   __shared__ __align__(16) uint8_t smem[TL::SMEM];
-  uint8_t* os = smem + 2 * TL::STAGE;  // the output tile (M4R: also the table)
+  uint8_t* os = smem + 2 * TL::STAGE;  // the table, then the output tile
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int tid = threadIdx.x;
+  // thread = 8 rows (rg*8 ..) x one 16-byte lane; in the table build, group
+  // rg of the stage's 4-row groups x the same lane
+  const int lane16 = tid & 15, rg = tid >> 4;
   const int64_t rt = blockIdx.x % row_tiles, cg = blockIdx.x / row_tiles;
-  const int64_t arow0 = rt * BMA, orow0 = rt * TL::OR;
+  const int64_t row0 = rt * BMA;
   const int64_t ct0 = cg * cpb, nct = ct0 + cpb < col_tiles ? cpb : col_tiles - ct0;
   A += blockIdx.z * sA;
   X += blockIdx.z * sX;
@@ -169,16 +128,14 @@ __global__ void __launch_bounds__(THREADS)
   const int nk = static_cast<int>(kt1 - kt0);  // >= 1: the launcher leaves no split empty
   const int64_t items = nct * nk;
 
-  constexpr int AC = AW * 4 / AV;  // copies per A row
   auto load = [&](int buf, int64_t item) {
     uint8_t* xs = smem + buf * TL::STAGE;
     uint32_t* as = reinterpret_cast<uint32_t*>(xs + TL::X_BYTES);
     const int64_t kt = kt0 + item % nk, col0 = (ct0 + item / nk) * BT;
     const int64_t xr0 = kt * XR;
     if constexpr (VEC == 16) {
-      constexpr int CH = BT / 16;
-      for (int e = tid; e < XR * CH; e += THREADS) {
-        const int r = e / CH, ch = e % CH;
+      for (int e = tid; e < XR * LN; e += THREADS) {
+        const int r = e / LN, ch = e % LN;
         const int64_t gr = xr0 + r, gc = col0 + ch * 16;
         const bool ok = gr < kx && gc < t;
         cp_async16(xs + r * BT + ch * 16, ok ? X + gr * t + gc : X, ok ? 16 : 0);
@@ -190,28 +147,20 @@ __global__ void __launch_bounds__(THREADS)
         xs[r * BT + c] = (gr < kx && gc < t) ? X[gr * t + gc] : 0;
       }
     }
-    const int64_t byte0 = kt * (KB / 8);
-    for (int e = tid; e < BMA * AC; e += THREADS) {
-      const int r = e / AC, w = (e % AC) * (AV / 4);
-      const int64_t gr = arow0 + r, gb = byte0 + w * 4;
+    const int64_t gb = kt * (KB / 8);
+    for (int r = tid; r < BMA; r += THREADS) {
+      const int64_t gr = row0 + r;
       const bool ok = gr < MA && gb < pitch;
-      if constexpr (AV == 16)
-        cp_async16(as + TL::aoff(r, w), ok ? A + gr * pitch + gb : A, ok ? 16 : 0);
-      else
-        cp_async4(as + TL::aoff(r, w), ok ? A + gr * pitch + gb : A, ok ? 4 : 0);
+      cp_async4(as + r, ok ? A + gr * pitch + gb : A, ok ? 4 : 0);
     }
     cp_async_commit();
   };
 
-  // accumulators: tensor forms [4 m-tiles][8 n-tiles][C fragment]; the XOR
-  // form uses acc[0][row][word] (8 rows x one uint4)
-  uint32_t acc[4][8][4];
+  uint32_t acc[8][4];  // rows rg*8 + r, one 16-byte lane
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
+    for (int q = 0; q < 4; ++q) acc[r][q] = 0;
 
   if (items > 0) load(0, 0);
   for (int64_t it = 0; it < items; ++it) {
@@ -226,119 +175,46 @@ __global__ void __launch_bounds__(THREADS)
     // a k tile whose A bits are all zero adds nothing: the block skips it
     // (each thread checks the A words it copied; the barrier ORs them)
     uint32_t nz = 0;
-    for (int e = tid; e < BMA * AC; e += THREADS) {
-      const uint32_t* w = as + TL::aoff(e / AC, (e % AC) * (AV / 4));
-#pragma unroll
-      for (int j = 0; j < AV / 4; ++j) nz |= w[j];
-    }
+    for (int r = tid; r < BMA; r += THREADS) nz |= as[r];
     if (__syncthreads_or(nz != 0)) {
-      if constexpr (FORM == FORM_GF2_TC) {
-        // warp: all 64 rows x 8 columns (warp*8 + g), 8 bit planes as 8 n-tiles
-        const int col = warp * 8 + g;
-#pragma unroll
-        for (int ks = 0; ks < KB / 32; ++ks) {
-          const uint8_t* xp = xs + (ks * 32 + tig * 4) * BT + col;
-          const uint32_t xlo = xp[0] | xp[BT] << 8 | xp[2 * BT] << 16 | static_cast<uint32_t>(xp[3 * BT]) << 24;
-          const uint8_t* xq = xp + 16 * BT;
-          const uint32_t xhi = xq[0] | xq[BT] << 8 | xq[2 * BT] << 16 | static_cast<uint32_t>(xq[3 * BT]) << 24;
-          uint32_t a[4][4];
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) a_frag<TL>(a[mt], as, mt * 16 + g, mt * 16 + g + 8, ks, tig);
-#pragma unroll
-          for (int p = 0; p < 8; ++p) {
-            const uint32_t b0 = (xlo >> p) & 0x01010101u, b1 = (xhi >> p) & 0x01010101u;
-#pragma unroll
-            for (int mt = 0; mt < 4; ++mt) mma_s8(acc[mt][p], a[mt], b0, b1);
-          }
+      uint4* tab = reinterpret_cast<uint4*>(os);
+      {
+        // K2: group rg is X rows 4rg .. 4rg+3.  K3: group rg is nibble rg%2
+        // of X row rg/2's coefficients: alpha^(4*(rg%2) + j) (x) X[rg/2], j < 4
+        uint4 c[16];
+        if constexpr (!G256) {
+          const uint4* xv = reinterpret_cast<const uint4*>(xs) + rg * 4 * LN + lane16;
+          c[1] = xv[0], c[2] = xv[LN], c[4] = xv[2 * LN], c[8] = xv[3 * LN];
+        } else {
+          uint4 y = reinterpret_cast<const uint4*>(xs)[(rg >> 1) * LN + lane16];
+          if (rg & 1) y = xtime(xtime(xtime(xtime(y))));
+          c[1] = y, c[2] = xtime(y), c[4] = xtime(c[2]), c[8] = xtime(c[4]);
         }
-      } else if constexpr (FORM == FORM_GF256_TC) {
-        // warp: output rows warp*8 + g (A rows 8*(warp*8+g) + plane) x 64
-        // columns; m-tile mt holds planes 2mt (rows g) and 2mt+1 (rows g+8);
-        // n-tile n8 holds columns 8*n + n8, so a thread's 8 columns (8g ..
-        // 8g+7) are one 8-byte load
-        const int rbase = (warp * 8 + g) * 8;
-        const int sh = (tig & 1) * 4;
+        c[3] = vxor(c[1], c[2]);
 #pragma unroll
-        for (int ks = 0; ks < KB / 32; ++ks) {
-          uint32_t a[4][4];
+        for (int j = 5; j < 8; ++j) c[j] = vxor(c[4], c[j - 4]);
 #pragma unroll
-          for (int mt = 0; mt < 4; ++mt) a_frag<TL>(a[mt], as, rbase + 2 * mt, rbase + 2 * mt + 1, ks, tig);
-          // k step ks covers X rows ks*4 .. ks*4+3; byte i of b0 is bit
-          // (tig&1)*4 + i of X row ks*4 + tig/2, b1 two rows further
-          const uint2 xl = *reinterpret_cast<const uint2*>(xs + (ks * 4 + (tig >> 1)) * BT + 8 * g);
-          const uint2 xh = *reinterpret_cast<const uint2*>(xs + (ks * 4 + 2 + (tig >> 1)) * BT + 8 * g);
+        for (int j = 9; j < 16; ++j) c[j] = vxor(c[8], c[j - 8]);
+        uint4* tg = tab + rg * 15 * LN + lane16;
 #pragma unroll
-          for (int n8 = 0; n8 < 8; ++n8) {
-            const uint32_t wl = n8 < 4 ? xl.x : xl.y, wh = n8 < 4 ? xh.x : xh.y;
-            const uint32_t b0 = expand4(wl >> (8 * (n8 & 3) + sh));
-            const uint32_t b1 = expand4(wh >> (8 * (n8 & 3) + sh));
+        for (int j = 1; j < 16; ++j) tg[(j - 1) * LN] = c[j];
+      }
+      uint32_t wb[8];
 #pragma unroll
-            for (int mt = 0; mt < 4; ++mt) mma_s8(acc[mt][n8], a[mt], b0, b1);
-          }
-        }
-      } else if constexpr (TL::M4R) {
-        // thread = 8 rows (rg*8 ..) x one 16-byte lane; table build: thread
-        // = group rg x lane (8 groups of 4 A columns, 16 lanes).  K2: group
-        // rg is X rows 4rg .. 4rg+3.  K3: group rg is nibble rg%2 of X row
-        // rg/2's coefficients: alpha^(4*(rg%2) + j) (x) X[rg/2], j < 4
-        const int lane16 = tid & 15, rg = tid >> 4;
-        constexpr int LN = BT / 16;
-        uint4* tab = reinterpret_cast<uint4*>(os);
-        {
-          uint4 c[16];
-          if constexpr (FORM == FORM_GF2_M4R) {
-            const uint4* xv = reinterpret_cast<const uint4*>(xs) + rg * 4 * LN + lane16;
-            c[1] = xv[0], c[2] = xv[LN], c[4] = xv[2 * LN], c[8] = xv[3 * LN];
-          } else {
-            uint4 y = reinterpret_cast<const uint4*>(xs)[(rg >> 1) * LN + lane16];
-            if (rg & 1) y = xtime(xtime(xtime(xtime(y))));
-            c[1] = y, c[2] = xtime(y), c[4] = xtime(c[2]), c[8] = xtime(c[4]);
-          }
-          c[3] = vxor(c[1], c[2]);
+      for (int r = 0; r < 8; ++r) wb[r] = as[rg * 8 + r];
+      __syncthreads();
+      const uint4* tl = tab + lane16;
 #pragma unroll
-          for (int j = 5; j < 8; ++j) c[j] = vxor(c[4], c[j - 4]);
+      for (int gq = 0; gq < KB / 4; ++gq) {
 #pragma unroll
-          for (int j = 9; j < 16; ++j) c[j] = vxor(c[8], c[j - 8]);
-          uint4* tg = tab + rg * 15 * LN + lane16;
-#pragma unroll
-          for (int j = 1; j < 16; ++j) tg[(j - 1) * LN] = c[j];
-        }
-        uint32_t wb[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) wb[r] = as[TL::aoff(rg * 8 + r, 0)];
-        __syncthreads();
-        const uint4* tl = tab + lane16;
-#pragma unroll
-        for (int gq = 0; gq < KB / 4; ++gq) {
-#pragma unroll
-          for (int r = 0; r < 8; ++r) {
-            const uint32_t idx = (wb[r] >> (4 * gq)) & 15u;
-            if (idx) {
-              const uint4 v = tl[(gq * 15 + static_cast<int>(idx) - 1) * LN];
-              acc[0][r][0] ^= v.x;
-              acc[0][r][1] ^= v.y;
-              acc[0][r][2] ^= v.z;
-              acc[0][r][3] ^= v.w;
-            }
-          }
-        }
-      } else {
-        // XOR form: thread = 8 rows (rg*8 ..) x one 16-byte lane
-        const int lane16 = tid & 15, rg = tid >> 4;
-        uint32_t wb[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) wb[r] = as[TL::aoff(rg * 8 + r, 0)];
-        const uint4* xv = reinterpret_cast<const uint4*>(xs);
-#pragma unroll 8
-        for (int c = 0; c < 32; ++c) {
-          const uint4 x = xv[c * (BT / 16) + lane16];
-#pragma unroll
-          for (int r = 0; r < 8; ++r) {
-            const uint32_t msk = static_cast<uint32_t>(static_cast<int32_t>(wb[r] << (31 - c)) >> 31);
-            acc[0][r][0] ^= x.x & msk;
-            acc[0][r][1] ^= x.y & msk;
-            acc[0][r][2] ^= x.z & msk;
-            acc[0][r][3] ^= x.w & msk;
+        for (int r = 0; r < 8; ++r) {
+          const uint32_t idx = (wb[r] >> (4 * gq)) & 15u;
+          if (idx) {
+            const uint4 v = tl[(gq * 15 + static_cast<int>(idx) - 1) * LN];
+            acc[r][0] ^= v.x;
+            acc[r][1] ^= v.y;
+            acc[r][2] ^= v.z;
+            acc[r][3] ^= v.w;
           }
         }
       }
@@ -346,52 +222,23 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
     if (it % nk != nk - 1) continue;
 
-    // the column tile is done: pack it into os [OR][BT], then write it out
-    if constexpr (FORM == FORM_GF2_TC) {
+    // the column tile is done: stage it in os [BMA][BT], then write it out
+    uint4* ov = reinterpret_cast<uint4*>(os);
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+    for (int r = 0; r < 8; ++r) {
+      ov[(rg * 8 + r) * LN + lane16] = make_uint4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {  // q: (row half, column) of the C fragment
-          uint32_t byte = 0;
-#pragma unroll
-          for (int p = 0; p < 8; ++p) byte |= (acc[mt][p][q] & 1u) << p;
-          os[(mt * 16 + (q >> 1) * 8 + g) * BT + warp * 8 + tig * 2 + (q & 1)] = static_cast<uint8_t>(byte);
-        }
-    } else if constexpr (FORM == FORM_GF256_TC) {
-#pragma unroll
-      for (int n8 = 0; n8 < 8; ++n8)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          uint32_t byte = 0;
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt)
-            byte |= (acc[mt][n8][j] & 1u) << (2 * mt) | (acc[mt][n8][2 + j] & 1u) << (2 * mt + 1);
-          os[(warp * 8 + g) * BT + (tig * 2 + j) * 8 + n8] = static_cast<uint8_t>(byte);
-        }
-    } else {  // the XOR forms: rows rg*8 .. x lane
-      const int lane16 = tid & 15, rg = tid >> 4;
-      uint4* ov = reinterpret_cast<uint4*>(os);
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        ov[(rg * 8 + r) * (BT / 16) + lane16] =
-            make_uint4(acc[0][r][0], acc[0][r][1], acc[0][r][2], acc[0][r][3]);
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0;
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
     __syncthreads();
 
     const int64_t col0 = (ct0 + it / nk) * BT;
     if constexpr (VEC == 16) {
-      constexpr int CH = BT / 16;
-      for (int e = tid; e < TL::OR * CH; e += THREADS) {
-        const int r = e / CH, ch = e % CH;
-        const int64_t gr = orow0 + r, gc = col0 + ch * 16;
-        if (gr >= mo || gc >= t) continue;
-        const uint4 v = reinterpret_cast<const uint4*>(os)[e];
+      for (int e = tid; e < BMA * LN; e += THREADS) {
+        const int r = e / LN, ch = e % LN;
+        const int64_t gr = row0 + r, gc = col0 + ch * 16;
+        if (gr >= MA || gc >= t) continue;
+        const uint4 v = ov[e];
         uint4* o = reinterpret_cast<uint4*>(out + gr * t + gc);
         if (mode == 0) {
           *o = v;
@@ -406,10 +253,10 @@ __global__ void __launch_bounds__(THREADS)
         }
       }
     } else {
-      for (int e = tid; e < TL::OR * BT; e += THREADS) {
+      for (int e = tid; e < BMA * BT; e += THREADS) {
         const int r = e / BT, c = e % BT;
-        const int64_t gr = orow0 + r, gc = col0 + c;
-        if (gr >= mo || gc >= t) continue;
+        const int64_t gr = row0 + r, gc = col0 + c;
+        if (gr >= MA || gc >= t) continue;
         const uint8_t v = os[e];
         uint8_t* o = out + gr * t + gc;
         if (mode == 0) {
@@ -422,35 +269,32 @@ __global__ void __launch_bounds__(THREADS)
         }
       }
     }
-    // the next pack into os comes after at least one more item and its barriers
+    // the next table build into os comes after at least one more barrier
   }
 }
 
-// Launch one product over nb blocks.  kx: X rows; MA: A rows; mo: output
-// rows; ksplit: 0 = the rule below, else the k splits to use (at most the k
-// tiles).  A's pitch, base and block stride must be multiples of 16 bytes
-// (the wrapper pads).  The rule: when row and column tiles give fewer than
+// Launch one product over nb blocks.  kx: X rows; MA: A rows (= output
+// rows).  A's pitch, base and block stride must be multiples of 16 bytes
+// (the wrapper pads); kx must be at least 1 (the wrapper handles an empty
+// contraction).  The rule: when row and column tiles give fewer than
 // FILL_BLOCKS blocks, split k until they do; when they give more than
 // 2 * FILL_BLOCKS, give each block a run of column tiles, so that about
 // 2 * FILL_BLOCKS blocks stream their tiles with copies in flight.  Returns
 // a CUDA error code.
-template <int FORM>
+template <bool G256>
 cudaError_t launch_core(int64_t nb, const uint8_t* A, int64_t MA, int64_t pitch, int64_t sA,
-                        const uint8_t* X, int64_t kx, int64_t t, int64_t sX, uint8_t* out, int64_t mo,
-                        int64_t sO, int accumulate, int64_t ksplit, cudaStream_t stream) {
-  using TL = Tile<FORM>;
-  if (nb <= 0 || mo <= 0 || t <= 0) return cudaSuccess;
-  if (pitch % 16 || sA % 16 || reinterpret_cast<uintptr_t>(A) % 16) return cudaErrorInvalidValue;
-  const size_t span = static_cast<size_t>((nb - 1) * sO + mo * t);  // bytes from out to the last row's end
-  if (kx <= 0) return accumulate ? cudaSuccess : cudaMemsetAsync(out, 0, span, stream);
+                        const uint8_t* X, int64_t kx, int64_t t, int64_t sX, uint8_t* out,
+                        int64_t sO, int accumulate, cudaStream_t stream) {
+  using TL = Tile<G256>;
+  if (nb <= 0 || MA <= 0 || t <= 0) return cudaSuccess;
+  if (kx <= 0 || pitch % 16 || sA % 16 || reinterpret_cast<uintptr_t>(A) % 16) return cudaErrorInvalidValue;
   const int64_t row_tiles = (MA + TL::BMA - 1) / TL::BMA;
   const int64_t col_tiles = (t + TL::BT - 1) / TL::BT;
-  const int64_t kbits = TL::G256 ? 8 * kx : kx;
+  const int64_t kbits = G256 ? 8 * kx : kx;
   const int64_t ktiles = (kbits + TL::KB - 1) / TL::KB;
   const int64_t base = row_tiles * col_tiles * nb;
-  if (ksplit <= 0) ksplit = base >= FILL_BLOCKS ? 1 : (FILL_BLOCKS + base - 1) / base;
+  int64_t ksplit = base >= FILL_BLOCKS ? 1 : (FILL_BLOCKS + base - 1) / base;
   if (ksplit > ktiles) ksplit = ktiles;
-  if (ksplit < 1) ksplit = 1;
   const int64_t per = (ktiles + ksplit - 1) / ksplit;
   ksplit = (ktiles + per - 1) / per;  // no split is left without a tile
   const int64_t cpb = base > 2 * FILL_BLOCKS ? (base + 2 * FILL_BLOCKS - 1) / (2 * FILL_BLOCKS) : 1;
@@ -460,18 +304,18 @@ cudaError_t launch_core(int64_t nb, const uint8_t* A, int64_t MA, int64_t pitch,
   int mode = accumulate ? 1 : 0;
   if (ksplit > 1) {
     mode = 2;
-    if (!accumulate) {
-      cudaError_t e = cudaMemsetAsync(out, 0, span, stream);
+    if (!accumulate) {  // bytes from out to the last row's end
+      cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>((nb - 1) * sO + MA * t), stream);
       if (e != cudaSuccess) return e;
     }
   }
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(ksplit), static_cast<unsigned>(nb));
   const bool vec = t % 16 == 0 && sX % 16 == 0 && sO % 16 == 0 && aligned16(X) && aligned16(out);
   if (vec)
-    gf_core_kernel<FORM, 16><<<grid, THREADS, 0, stream>>>(A, MA, pitch, sA, X, kx, t, sX, out, mo, sO,
+    gf_core_kernel<G256, 16><<<grid, THREADS, 0, stream>>>(A, MA, pitch, sA, X, kx, t, sX, out, sO,
                                                            row_tiles, col_tiles, cpb, ktiles, per, mode);
   else
-    gf_core_kernel<FORM, 1><<<grid, THREADS, 0, stream>>>(A, MA, pitch, sA, X, kx, t, sX, out, mo, sO,
+    gf_core_kernel<G256, 1><<<grid, THREADS, 0, stream>>>(A, MA, pitch, sA, X, kx, t, sX, out, sO,
                                                           row_tiles, col_tiles, cpb, ktiles, per, mode);
   return cudaGetLastError();
 }

@@ -7,34 +7,23 @@
 //
 // The bit matrix stays packed little-endian, [m, pitch] bytes with bit c of
 // row r at byte c/8, bit c%8 -- how the schedules store the chunk inverses,
-// Wut and the decode W -- and is expanded to 0/1 only in registers.  Bound on
-// the H100: 16*m*k*t int8 tensor-core operations at 1,979 TOP/s (the TPU
-// kernel's formulation), or the bytes of X and out where m is small.  Design:
-// the shared core in gf2_core.cuh (mma.sync s8 over bit planes, cp.async
-// double-buffered tiles, split k with atomicXor to fill the card at the
-// decode widths, a grid-z block axis for the batched W decode).  `form`
-// picks the inner product: 0 the tensor cores, 1 the branch-free masked-XOR
-// form on the CUDA cores, 2 that form with four-Russians tables.  All three
-// are measured (tools/matmul_forms.py); the wrapper's rule
-// (ops/kernels.gf2_form) takes form 2, and form 0 for the smallest products.
+// Wut and the decode W.  The body is the four-Russians form of the shared
+// core (gf2_core.cuh): per group of 4 columns a shared-memory table of the
+// 15 XOR combinations of their X rows, one lookup and 4 XORs per row, group
+// and 16-byte lane; cp.async double-buffered tiles; split k with atomicXor to
+// fill the card at the decode widths; a grid-z block axis for the batched W
+// decode.  What bounds it on the H100: the table lookups and XORs on the CUDA
+// cores and shared memory, and at the wide encode shapes the bytes of X and
+// out (PERF.md gives each main-path shape's bound).
 #include "gf2_core.cuh"
 
 // nb blocks b of bits uint8 [m, pitch] at bits + b*sA (pitch >= ceil(k/8),
 // pitch, sA and the base multiples of 16), X uint8 [k, t] at X + b*sX and out
-// uint8 [m, t] at out + b*sO (strides in bytes).  ksplit 0: the core's rule.
-extern "C" int nrq_gf2_matmul(int form, int64_t nb, const void* bits, int64_t m, int64_t k,
-                              int64_t pitch, int64_t sA, const void* X, int64_t t, int64_t sX,
-                              void* out, int64_t sO, int accumulate, int64_t ksplit, void* stream) {
-  using namespace nrq::core;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* A = static_cast<const uint8_t*>(bits);
-  const uint8_t* Xb = static_cast<const uint8_t*>(X);
-  uint8_t* o = static_cast<uint8_t*>(out);
-  if (form == FORM_GF2_TC)
-    return launch_core<FORM_GF2_TC>(nb, A, m, pitch, sA, Xb, k, t, sX, o, m, sO, accumulate, ksplit, s);
-  if (form == FORM_GF2_XOR)
-    return launch_core<FORM_GF2_XOR>(nb, A, m, pitch, sA, Xb, k, t, sX, o, m, sO, accumulate, ksplit, s);
-  if (form == FORM_GF2_M4R)
-    return launch_core<FORM_GF2_M4R>(nb, A, m, pitch, sA, Xb, k, t, sX, o, m, sO, accumulate, ksplit, s);
-  return cudaErrorInvalidValue;
+// uint8 [m, t] at out + b*sO (strides in bytes); k >= 1.
+extern "C" int nrq_gf2_matmul(int64_t nb, const void* bits, int64_t m, int64_t k, int64_t pitch, int64_t sA,
+                              const void* X, int64_t t, int64_t sX, void* out, int64_t sO, int accumulate,
+                              void* stream) {
+  return nrq::core::launch_core<false>(nb, static_cast<const uint8_t*>(bits), m, pitch, sA,
+                                       static_cast<const uint8_t*>(X), k, t, sX, static_cast<uint8_t*>(out),
+                                       sO, accumulate, static_cast<cudaStream_t>(stream));
 }

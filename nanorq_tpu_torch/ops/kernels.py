@@ -18,7 +18,7 @@ owns) instead of being returned in a fresh tensor.
 import numpy as np
 import torch
 
-from nanorq_tpu_torch.gf256.tables import GF_MUL, OCT_EXP, OCT_LOG
+from nanorq_tpu_torch.gf256.tables import OCT_EXP, OCT_LOG
 from nanorq_tpu_torch.ops import _build, gfmat
 
 LAUNCHES = {"gather_xor": 0, "gf2_matmul": 0, "gf256_matmul": 0,
@@ -175,30 +175,12 @@ def _words(A: torch.Tensor) -> torch.Tensor:
     return A
 
 
-# K2's inner product per shape: the tensor-core form (0), the masked-XOR form
-# (1) or that form with four-Russians tables (2), all timed at every
-# main-path shape by tools/matmul_forms.py.
-GF2_TC, GF2_XOR, GF2_M4R = 0, 1, 2
-GF2_TC_MAX_OUT = 1 << 17  # output bytes (nb * m * t) up to which the tensor cores lead
-
-
-def gf2_form(m: int, k: int, t: int, nb: int = 1) -> int:
-    """The rule that picks K2's form for a shape: the four-Russians form,
-    except for the smallest products (one W decode block, 64 x 1280 bytes
-    out), where the tensor-core form was ~10% ahead.  The masked-XOR form
-    led at no main-path shape (PERF.md)."""
-    return GF2_TC if nb * m * t <= GF2_TC_MAX_OUT else GF2_M4R
-
-
-def gf2_matmul(bits: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = None, *,
-               form: int | None = None, ksplit: int = 0) -> torch.Tensor:
+def gf2_matmul(bits: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """K2: out[r] = XOR_{c: bit(r,c)} X[c];  bits uint8 [m, >=ceil(k/8)] packed
     little-endian (bit c of row r = bits[r, c//8] >> (c%8) & 1), X uint8 [k, t].
 
     Batched: bits [nb, m, pitch] and X [nb, k, t] -> [nb, m, t], the nb
-    products in one launch (the kernel's grid z is the block).  `form`
-    overrides the rule of `gf2_form`; `ksplit` the kernel's k split (0: fill
-    the card) -- both for measurements and tests."""
+    products in one launch (the kernel's grid z is the block)."""
     dim, nb, m, pitch, k, t = _batch_args(bits, X, "bits")
     _need(pitch * 8 >= k, f"bits: {pitch} bytes per row cannot hold k={k} columns")
     shape = (nb, m, t) if dim == 3 else (m, t)
@@ -210,8 +192,8 @@ def gf2_matmul(bits: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = N
         for j in range(nb):
             res[j] = gfmat.gf2_matmul(gfmat.unpack_bits(bits[j])[:, :k], X[j])
         return _plain(res, out)
-    form = gf2_form(m, k, t, nb) if form is None else form
-    _need(form in (GF2_TC, GF2_XOR, GF2_M4R), f"gf2_matmul: form {form} is not 0, 1 or 2")
+    if k == 0:  # an empty contraction: nothing to launch
+        return out if out is not None else X.new_zeros(shape)
     acc = out is not None
     res = out if acc else torch.empty(shape, dtype=torch.uint8, device=X.device)
     if nb and m and t:
@@ -219,13 +201,12 @@ def gf2_matmul(bits: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = N
         pa = A.shape[-1]
         lib = _build.load()
         with torch.cuda.device(X.device):
-            _launch("gf2_matmul", lib.nrq_gf2_matmul, form, nb, A.data_ptr(), m, k, pa, m * pa,
-                    X.data_ptr(), t, k * t, res.data_ptr(), m * t, int(acc), ksplit, _stream(X.device))
+            _launch("gf2_matmul", lib.nrq_gf2_matmul, nb, A.data_ptr(), m, k, pa, m * pa,
+                    X.data_ptr(), t, k * t, res.data_ptr(), m * t, int(acc), _stream(X.device))
     return res
 
 
 _TABLES: dict = {}  # device -> (log uint16-as-int16 [256], exp uint8 [1024])
-_COMP: dict = {}  # device -> [256, 8] uint8 companion rows
 
 
 def _gf_tables(dev: torch.device):
@@ -239,87 +220,54 @@ def _gf_tables(dev: torch.device):
     return tabs
 
 
-def _comp_table(dev: torch.device) -> torch.Tensor:
-    """[256, 8]: row a, byte p = bits q of (a (x) alpha^q) at bit p, packed
-    over q -- row p of a's 8x8 companion block."""
-    tab = _COMP.get(dev)
-    if tab is None:
-        prod = GF_MUL[:, OCT_EXP[:8]]  # [a, q] = a (x) alpha^q
-        bits = (prod[:, None, :] >> np.arange(8)[None, :, None]) & 1  # [a, p, q]
-        tab = _COMP[dev] = torch.from_numpy(
-            np.packbits(bits.astype(np.uint8), axis=2, bitorder="little")[:, :, 0]).to(dev)
-    return tab
-
-
-def companion(M: torch.Tensor) -> torch.Tensor:
-    """GF(256) M [..., m, k] -> its companion bits packed [..., 8m, k16] uint8,
-    k16 = k rounded up to 16: row 8r+p, byte c holds, at bit q, bit p of
-    M[r, c] (x) alpha^q (gfmat.companion_bits, packed little-endian along
-    its columns).  The byte columns past k are zero."""
-    tab = _comp_table(M.device)
-    *lead, m, k = M.shape
-    rows = torch.index_select(tab, 0, M.reshape(-1).to(torch.int32))  # [.., m, k, 8] flat
-    comp = rows.reshape(*lead, m, k, 8).transpose(-1, -2).reshape(*lead, 8 * m, k)
-    return _words(comp.contiguous())
-
-
-# K3's form per shape: the companion-bit product on K2's tensor cores (0),
-# the direct log/exp design (1) or K2's four-Russians form over alpha-scaled
-# rows (2), all timed at every main-path shape by tools/matmul_forms.py.
-GF256_COMP, GF256_LOGEXP, GF256_M4R = 0, 1, 2
-GF256_LOGEXP_MIN_T = 1 << 16  # payload width from which log/exp may take over ...
+# K3's two forms: the companion-bit product on K2's four-Russians core, and
+# the direct log/exp design; tools/matmul_forms.py times the rule's form at
+# every main-path shape.
+GF256_M4R, GF256_LOGEXP = 0, 1
+GF256_LOGEXP_MIN_T = 1 << 16  # payload width from which log/exp takes over ...
 GF256_LOGEXP_MAX_M = 16  # ... for products of at most this many rows
 
 
-def gf256_form(m: int, k: int, t: int, nb: int = 1) -> int:
+def gf256_form(m: int, t: int) -> int:
     """The rule that picks K3's form for a shape: the four-Russians form,
     except for a wide product (t >= 2**16) of few rows (m <= 16), which goes
     to log/exp -- the encoder's HDPC product over an object (10 rows): the
     four-Russians tables are built per block of 64 rows, and with 10 of them
-    the build is not paid back.  The companion-bit form led at no main-path
-    shape (PERF.md)."""
+    the build is not paid back (PERF.md)."""
     if t >= GF256_LOGEXP_MIN_T and m <= GF256_LOGEXP_MAX_M:
         return GF256_LOGEXP
     return GF256_M4R
 
 
-def gf256_matmul(M: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = None, *,
-                 form: int | None = None, ksplit: int = 0) -> torch.Tensor:
+def gf256_matmul(M: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """K3: out[r] = XOR_c M[r,c] (x) X[c] over GF(256);  M uint8 [m, k], X uint8 [k, t].
 
     Batched: M [nb, m, k] and X [nb, k, t] -> [nb, m, t], the nb products in
-    one launch (the kernel's grid z is the block).  `form` and `ksplit`
-    override the rule of `gf256_form` and the k split, for measurements and
-    tests."""
+    one launch (the kernel's grid z is the block).  `gf256_form` picks the
+    kernel's form for the shape."""
     dim, nb, m, k, kx, t = _batch_args(M, X, "M")
     _need(kx == k, f"X: {kx} rows for a {k}-column M")
     shape = (nb, m, t) if dim == 3 else (m, t)
     out = _out(out, shape, M, X)
     if _device_kind(M, X) == "cpu":
         return _plain(gfmat.gf256_matmul_batch(M, X) if dim == 3 else gfmat.gf256_matmul(M, X), out)
-    form = gf256_form(m, k, t, nb) if form is None else form
-    _need(form in (GF256_COMP, GF256_LOGEXP, GF256_M4R), f"gf256_matmul: form {form} is not 0, 1 or 2")
+    if k == 0:  # an empty contraction: nothing to launch
+        return out if out is not None else X.new_zeros(shape)
     acc = out is not None
     res = out if acc else torch.empty(shape, dtype=torch.uint8, device=X.device)
     if nb and m and t:
         lib = _build.load()
-        if form == GF256_COMP:
-            C = companion(M)
-            with torch.cuda.device(X.device):
-                _launch("gf256_matmul", lib.nrq_gf256_matmul, nb, C.data_ptr(), m, C.shape[-1],
-                        8 * m * C.shape[-1], X.data_ptr(), t, k * t, res.data_ptr(), m * t, int(acc),
-                        ksplit, _stream(X.device))
-        elif form == GF256_M4R:
+        if gf256_form(m, t) == GF256_M4R:
             A = _words(M)
             pa = A.shape[-1]
             with torch.cuda.device(X.device):
                 _launch("gf256_matmul", lib.nrq_gf256_m4r, nb, A.data_ptr(), m, k, pa, m * pa, X.data_ptr(),
-                        t, k * t, res.data_ptr(), m * t, int(acc), ksplit, _stream(X.device))
+                        t, k * t, res.data_ptr(), m * t, int(acc), _stream(X.device))
         else:
             log, exp = _gf_tables(X.device)
             with torch.cuda.device(X.device):
                 _launch("gf256_matmul", lib.nrq_gf256_logexp, nb, M.data_ptr(), m, k, m * k, X.data_ptr(),
-                        t, k * t, log.data_ptr(), exp.data_ptr(), res.data_ptr(), m * t, int(acc), ksplit,
+                        t, k * t, log.data_ptr(), exp.data_ptr(), res.data_ptr(), m * t, int(acc),
                         _stream(X.device))
     return res
 

@@ -1,4 +1,4 @@
-"""K2 and K3 at the main path's shapes, in every form, against the plain versions.
+"""K2 and K3 at the main path's shapes, against the plain versions.
 
     python -m nanorq_tpu_torch.tools.matmul_forms [--shapes NAME,...] [--iters N]
 
@@ -6,20 +6,29 @@ For each shape of `SHAPES` (K = 1000, K' = 1002, T = 1280, Z = 200 blocks:
 the encoder's chunk inverse, Wut, HDPC and Vinv at t = T and t = Z*T -- the
 encoder schedule's own matrices, cut to their nonzero extents as the replay
 passes them, and Wut and HDPC also uncut -- the dense-W decode, single and
-batched, and the residual arm's chunk; X random) and of
-`EDGES` (ragged k, m < 16, t % 16 != 0, forced k splits), every form of the
-kernel -- K2: tensor cores, masked XOR, four-Russians tables; K3: companion
-bits on K2's tensor cores, the direct log/exp design, K2's four-Russians
-form over alpha-scaled rows -- runs on the same seeded random inputs and must equal
-the plain torch version (`ops/gfmat.py`) bit for bit; `rule` names the
-form the wrapper's rule picks for the shape and `ms` is its time.  Times are the mean
-of `--iters` launches captured in one CUDA graph and replayed (the kernels'
-own time, not Python's launch rate), the plain version's a CUDA-event mean.
-Each line carries the bound: the larger of the bytes (each input read once,
-the output written once) at 3.35 TB/s and the operations of the TPU
-kernels' formulation (16 m k t for GF(2), 128 m k t for GF(256)) at
-1,979 TOP/s int8, the H100 SXM data sheet's rates.  One JSON line per shape.
-Needs a CUDA device.
+batched, and the residual arm's chunk; X random) and of `EDGES` (ragged k,
+m < 16, t % 16 != 0, k split across blocks by the launch rule, nb = 1 and
+200, K3's log/exp form split and ragged), the wrapper's default call -- the
+one kernel its rule picks, named in `form` -- runs on seeded random inputs
+and must equal the plain torch version (`ops/gfmat.py`) bit for bit, alone
+and XORed into out=.  `ms` is the mean of `--iters` launches captured in
+one CUDA graph and replayed (the kernel's own time, not Python's launch
+rate), `plain_ms` a CUDA-event mean.  One JSON line per shape.  Needs a
+CUDA device.
+
+Each line carries the least time of the product on an H100 SXM at 700 W
+(`bounds`): `bytes_ms`, each input read once and the output written once at
+3.35 TB/s; `tc_ms`, the operations of the TPU kernels' formulation (int8
+matmuls over bit planes: 16 m k t for GF(2), 128 m k t for GF(256)) at
+1,979 TOP/s; `m4r_ms`, the 32-bit XORs of the four-Russians method (one per
+row, 4 bits of A and 4 bytes of t; A has 8 bits per GF(256) coefficient),
+two per three-input LOP3, at 64 LOP3 per clock per SM (CUDA C++
+Programming Guide, compute capability 9.0) x 132 SMs x 1.98 GHz.
+`bound_ms` is the larger of the bytes and the fewer of the two operation
+counts.  `form_floor_ms` is the kept form's own floor, which the bound does
+not include: the four-Russians form's table reads (16 bytes of shared
+memory per row, group of 4 A bits and 16-byte lane) at 128 bytes per clock
+per SM, log/exp's byte lookups at 32 per clock per SM.
 """
 
 import argparse
@@ -32,6 +41,10 @@ from nanorq_tpu_torch.ops import gfmat, kernels
 
 HBM_BPS = 3.35e12
 INT8_OPS = 1.979e15
+SM_CLOCKS = 132 * 1.98e9  # SMs x boost clock
+LOP3_OPS = 64 * SM_CLOCKS
+SMEM_BPS = 128 * SM_CLOCKS
+SMEM_LOOKUPS = 32 * SM_CLOCKS
 K, KP, T, Z = 1000, 1002, 1280, 200
 MPAD = 2048  # the encoder schedule's M_pad at K' = 1002
 WIDE = Z * T
@@ -57,31 +70,45 @@ SHAPES = {
     "res_w": ("gf256", 32, 110, 1024, T),
     "res_r": ("gf256", 32, 64, 110, T),
 }
-# name -> (kind, nb, m, k, t, ksplit)
+# name -> (kind, nb, m, k, t); the launch rule splits k wherever rows and
+# column tiles give fewer than 528 thread blocks
 EDGES = {
-    "gf2_ragged": ("gf2", 1, 50, 203, 1283, 0),
-    "gf2_m5_split3": ("gf2", 1, 5, 1000, 1280, 3),
-    "gf2_m13_t8": ("gf2", 2, 13, 77, 8, 0),
-    "gf2_nb1_splitmax": ("gf2", 1, 70, 1100, 1296, 65535),
-    "gf2_b200_ragged": ("gf2", 200, 17, 300, 100, 0),
-    "gf256_ragged": ("gf256", 1, 20, 203, 1283, 0),
-    "gf256_m3_split5": ("gf256", 3, 3, 130, 1280, 5),
-    "gf256_m1_t16": ("gf256", 1, 1, 9, 16, 0),
-    "gf256_b200": ("gf256", 200, 9, 40, 160, 0),
+    "gf2_ragged": ("gf2", 1, 50, 203, 1283),
+    "gf2_m5_longk": ("gf2", 1, 5, 20000, 64),  # 313 splits of 2 k tiles
+    "gf2_m13_t8": ("gf2", 2, 13, 77, 8),
+    "gf2_nb1_ksplit": ("gf2", 1, 70, 1100, 1296),  # 35 splits of 1 k tile
+    "gf2_b200_ragged": ("gf2", 200, 17, 300, 100),
+    "gf256_ragged": ("gf256", 1, 20, 203, 1283),
+    "gf256_m3_longk": ("gf256", 3, 3, 2000, 160),  # 167 splits of 3 k tiles
+    "gf256_m1_t16": ("gf256", 1, 1, 9, 16),
+    "gf256_b200": ("gf256", 200, 9, 40, 160),
+    "gf256_logexp_ksplit": ("gf256", 1, 7, 1000, 65536),  # log/exp, 8 splits
+    "gf256_logexp_ragged": ("gf256", 1, 10, 203, 65541),  # log/exp, byte lanes
 }
-# the values of kernels.GF2_TC / GF2_XOR / GF2_M4R and GF256_COMP /
-# GF256_LOGEXP / GF256_M4R, written out so that --baseline imports on a checkout that has
-# no forms
-FORMS = {"gf2": {"tc": 0, "xor": 1, "m4r": 2}, "gf256": {"comp": 0, "logexp": 1, "m4r": 2}}
 
 
-def bound_ms(kind: str, nb: int, m: int, k: int, t: int) -> tuple[float, str]:
-    """(least time in ms, what sets it) of one product on the H100."""
+def form(kind: str, m: int, t: int) -> str:
+    """The form the wrapper's rule runs for the shape."""
+    if kind == "gf2":
+        return "m4r"
+    return "logexp" if kernels.gf256_form(m, t) == kernels.GF256_LOGEXP else "m4r"
+
+
+def bounds(kind: str, nb: int, m: int, k: int, t: int) -> dict:
+    """The least times (ms) of one product on the H100 (see the module's
+    doc), with `bound_ms` and what sets it."""
+    kbits = k if kind == "gf2" else 8 * k
     a_bytes = m * (-(-k // 8) if kind == "gf2" else k)
-    nbytes = nb * (a_bytes + k * t + m * t)
-    ops = nb * (16 if kind == "gf2" else 128) * m * k * t
-    b, o = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
-    return (b, "bytes") if b >= o else (o, "operations")
+    b = {"bytes_ms": nb * (a_bytes + k * t + m * t) / HBM_BPS * 1e3,
+         "tc_ms": nb * (16 if kind == "gf2" else 128) * m * k * t / INT8_OPS * 1e3,
+         "m4r_ms": nb * m * kbits * t / 32 / LOP3_OPS * 1e3}
+    ops = min(b["tc_ms"], b["m4r_ms"])
+    b["bound_ms"], b["bound_by"] = (b["bytes_ms"], "bytes") if b["bytes_ms"] >= ops else (ops, "operations")
+    if form(kind, m, t) == "m4r":
+        b["form_floor_ms"] = nb * m * kbits * t / 4 / SMEM_BPS * 1e3
+    else:
+        b["form_floor_ms"] = nb * m * k * t / SMEM_LOOKUPS * 1e3
+    return b
 
 
 def operands(rng: np.random.Generator, kind: str, nb: int, m: int, k: int, t: int, dev):
@@ -132,11 +159,6 @@ def plain(kind: str, A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return torch.stack([gfmat.gf2_matmul(gfmat.unpack_bits(A[j])[:, :k], X[j]) for j in range(A.shape[0])])
 
 
-def kernel_call(kind: str, form: int, A, X, ksplit: int = 0):
-    mm = kernels.gf2_matmul if kind == "gf2" else kernels.gf256_matmul
-    return lambda: mm(A, X, form=form, ksplit=ksplit)
-
-
 def events_ms(fn, iters: int) -> float:
     """CUDA-event mean of fn() over `iters` back-to-back calls, after one."""
     fn()
@@ -175,102 +197,42 @@ def graph_ms(fn, iters: int) -> float:
 
 
 def measure(name: str, spec: tuple, dev, iters: int, timed: bool = True) -> dict:
-    """One line: every form bit-exact against plain, with times and the bound."""
+    """One line: the wrapper's call bit-exact against plain, with its time and
+    the bounds."""
     rng = np.random.default_rng(sum(map(ord, name)))
     if spec[0] == "sched":
         kind, A, X = sched_operands(rng, spec[1], spec[2], dev)
-        nb, (m, k), t, ksplit = 1, (A.shape[0], X.shape[0]), X.shape[1], 0
+        nb, (m, k), t = 1, (A.shape[0], X.shape[0]), X.shape[1]
     else:
-        kind, nb, m, k, t = spec[:5]
-        ksplit = spec[5] if len(spec) > 5 else 0
+        kind, nb, m, k, t = spec
         A, X = operands(rng, kind, nb, m, k, t, dev)
+    mm = kernels.gf2_matmul if kind == "gf2" else kernels.gf256_matmul
     want = plain(kind, A, X)
-    line = {"name": name, "kind": kind, "nb": nb, "m": m, "k": k, "t": t, "ksplit": ksplit}
-    rule = (kernels.gf2_form if kind == "gf2" else kernels.gf256_form)(m, k, t, nb)
-    line["rule"] = next(f for f, v in FORMS[kind].items() if v == rule)
-    for fname, form in FORMS[kind].items():
-        fn = kernel_call(kind, form, A, X, ksplit)
-        got = fn()
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = int((got != want).sum())
-            raise AssertionError(f"{name}: form {fname} differs from plain in {bad} bytes")
-        # accumulate: out ^= product, twice, gives out back
-        acc = want.clone()
-        (kernels.gf2_matmul if kind == "gf2" else kernels.gf256_matmul)(
-            A, X, out=acc, form=form, ksplit=ksplit)
-        torch.cuda.synchronize()
-        if bool(acc.any()):
-            raise AssertionError(f"{name}: form {fname} with out= does not XOR into out")
-        if timed:
-            line[f"{fname}_ms"] = graph_ms(fn, iters)
-    if kind == "gf256" and timed:  # the companion expansion, inside comp_ms
-        line["expand_ms"] = graph_ms(lambda: kernels.companion(A), iters)
+    line = {"name": name, "kind": kind, "nb": nb, "m": m, "k": k, "t": t, "form": form(kind, m, t)}
+    got = mm(A, X)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: the kernel differs from plain in {int((got != want).sum())} bytes")
+    acc = want.clone()  # out ^= product, from the product itself, gives zeros
+    mm(A, X, out=acc)
+    torch.cuda.synchronize()
+    if bool(acc.any()):
+        raise AssertionError(f"{name}: the kernel with out= does not XOR into out")
     if timed:
-        line["ms"] = line[f"{line['rule']}_ms"]
+        line["ms"] = graph_ms(lambda: mm(A, X), iters)
         line["plain_ms"] = events_ms(lambda: plain(kind, A, X), 2 if t > T else 5)
-        line["bound_ms"], line["bound_by"] = bound_ms(kind, nb, m, k, t)
+        line.update(bounds(kind, nb, m, k, t))
     return line
-
-
-# the table of PERF.md: name -> (kind, operand, t); operand "wut", "mhd",
-# "vinv", "tinv" (the K' = KP schedule's uncut matrix) or "w" (random [m, k])
-BASELINE = {
-    "tinv_wide": ("gf2", "tinv", WIDE),
-    "wut_wide": ("gf2", "wut", WIDE),
-    "hdpc_wide": ("gf256", "mhd", WIDE),
-    "vinv_wide": ("gf256", "vinv", WIDE),
-    "wdec": ("gf2", (64, 1024), T),
-    "wdec256": ("gf256", (64, MPAD), T),
-    "res_w": ("gf256", (32, 110, 1024), T),
-}
-
-
-def baseline(dev, iters: int) -> list:
-    """The default call of each kernel -- `kernels.gf2_matmul(bits, X)`,
-    `kernels.gf256_matmul(M, X)`, whatever form the wrapper picks -- on the
-    uncut operands of `BASELINE`, timed as above.  It uses only what every
-    version of the port has (`ops.kernels`, `host.encoder_schedule`), so the
-    same command times an earlier checkout run from its own root:
-    python path/to/matmul_forms.py --baseline."""
-    from nanorq_tpu_torch.host import encoder_schedule
-
-    ds = encoder_schedule(KP)
-    mats = {"tinv": ds.tri[0].tinv[0], "wut": ds.wut, "mhd": ds.mhd, "vinv": ds.vinv}
-    lines = []
-    for name, (kind, opnd, t) in BASELINE.items():
-        rng = np.random.default_rng(sum(map(ord, name)))
-        if isinstance(opnd, str):
-            A = torch.from_numpy(np.ascontiguousarray(mats[opnd])).to(dev)
-            k = A.shape[1] if kind == "gf256" else {"tinv": ds.CB, "wut": ds.u_pad}[opnd]
-            nb = 1
-        else:
-            *lead, m, k = opnd
-            nb = lead[0] if lead else 1
-            A, _ = operands(rng, kind, nb, m, k, 1, dev)
-        X = torch.from_numpy(rng.integers(0, 256, (*A.shape[:-2], k, t), dtype=np.uint8)).to(dev)
-        fn = (lambda: kernels.gf2_matmul(A, X)) if kind == "gf2" else (lambda: kernels.gf256_matmul(A, X))
-        if not torch.equal(fn(), plain(kind, A, X)):
-            raise AssertionError(f"{name}: the kernel differs from plain")
-        ms = graph_ms(fn, iters)
-        line = {"name": name, "kind": kind, "nb": nb, "m": A.shape[-2], "k": k, "t": t, "ms": ms}
-        print(json.dumps(line), flush=True)
-        lines.append(line)
-        torch.cuda.empty_cache()
-    return lines
 
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shapes", default="", help="comma-separated names (default: all shapes and edges)")
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--baseline", action="store_true", help="only the default calls of `baseline`")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("matmul_forms: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    if args.baseline:
-        return baseline(dev, args.iters)
     names = [n for n in args.shapes.split(",") if n] or [*SHAPES, *EDGES]
     lines = []
     for n in names:

@@ -1,41 +1,50 @@
 """The layouts of K2 (GF(2) matmul) and K3 (GF(256) matmul) on their shared
-core: K3's companion expansion, K2's block axis, the batched W decode's
-stacked gather, and the rules that pick each kernel's form -- on the CPU
-against the plain versions and the JAX package; on the card (marker `cuda`)
-every form of both kernels bit-exact at the edge shapes."""
+four-Russians core: K3's bits of M against alpha-scaled rows of X, K2's
+block axis, the batched W decode's stacked gather, the rule that picks K3's
+form and the bounds the forms tool reports -- on the CPU against the plain
+versions and the JAX package; on the card (marker `cuda`) both kernels
+bit-exact at the edge shapes."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from nanorq_tpu.gf256.bitplane import gf256_matmul_bytes
 from nanorq_tpu.ops import wpath as jw
+from nanorq_tpu_torch.gf256.tables import GF_MUL, OCT_EXP
 from nanorq_tpu_torch.ops import gfmat, kernels, wpath
+from nanorq_tpu_torch.tools import matmul_forms
 
 
 def _u8(rng, *shape):
     return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
 
 
+def _alpha_rows(X: torch.Tensor) -> torch.Tensor:
+    """X [k, t] -> [8k, t], row 8c+q = alpha^q (x) X[c]: the rows K3's core
+    tabulates."""
+    k, t = X.shape
+    alpha = torch.from_numpy(OCT_EXP[:8].astype(np.int64))
+    return torch.from_numpy(GF_MUL.copy())[alpha[None, :, None], X.to(torch.int64)[:, None, :]].reshape(8 * k, t)
+
+
 @pytest.mark.parametrize("nb,m,k,t", [(0, 5, 7, 9), (0, 32, 1280, 16), (0, 1, 1, 1), (3, 10, 110, 24)])
 def test_companion_times_bit_planes_is_gf256_matmul(nb, m, k, t):
-    """companion(M) unpacked, through the plain GF(2) product with X's bit
-    planes, equals the plain GF(256) product (nb = 0: a 2-D call)."""
+    """The companion expansion of M through the plain GF(2) product with X's
+    bit planes (the TPU kernel's formulation), and M's own bits through the
+    plain GF(2) product with the alpha-scaled rows of X (K3's layout on the
+    four-Russians core), both equal the JAX package's GF(256) product and
+    K3's wrapper (nb = 0: a 2-D call)."""
     rng = np.random.default_rng(m * 1000 + k)
-    lead = (nb,) if nb else ()
-    M, X = _u8(rng, *lead, m, k), _u8(rng, *lead, k, t)
-    C = kernels.companion(M)
-    assert C.shape == (*lead, 8 * m, k + (-k % 16)) and C.dtype == torch.uint8
-    assert not C[..., k:].any()
-    bits = gfmat.unpack_bits(C)[..., : 8 * k]
-    if nb:
-        got = torch.stack([gfmat.gf256_matmul_bits(bits[j], X[j]) for j in range(nb)])
-        assert torch.equal(bits, torch.stack([gfmat.companion_bits(M[j]) for j in range(nb)]))
-    else:
-        got = gfmat.gf256_matmul_bits(bits, X)
-        assert torch.equal(bits, gfmat.companion_bits(M))
-    assert torch.equal(got, gfmat.gf256_matmul_batch(M, X) if nb else gfmat.gf256_matmul(M, X))
-    assert torch.equal(kernels.gf256_matmul(M, X), got)
+    Ms, Xs = _u8(rng, max(nb, 1), m, k), _u8(rng, max(nb, 1), k, t)
+    for M, X in zip(Ms, Xs):
+        want = torch.from_numpy(gf256_matmul_bytes(M.numpy(), X.numpy()))
+        assert torch.equal(gfmat.gf256_matmul_bits(gfmat.companion_bits(M), X), want)
+        assert torch.equal(gfmat.gf2_matmul(gfmat.unpack_bits(M), _alpha_rows(X)), want)
+    want = torch.stack([torch.from_numpy(gf256_matmul_bytes(M.numpy(), X.numpy())) for M, X in zip(Ms, Xs)])
+    got = kernels.gf256_matmul(Ms, Xs) if nb else kernels.gf256_matmul(Ms[0], Xs[0])
+    assert torch.equal(got, want if nb else want[0])
 
 
 def test_gf2_matmul_block_axis_equals_per_block():
@@ -70,24 +79,47 @@ def test_stacked_w_gf2_equals_per_block_and_jax(nb):
 
 
 def test_form_rules_at_the_main_path_shapes():
-    """K2: four-Russians tables but for the smallest products (tensor cores);
-    K3: four-Russians tables but for wide products of few rows (log/exp)."""
-    assert kernels.gf2_form(64, 1024, 1280) == kernels.GF2_TC  # one W decode block
-    assert kernels.gf2_form(256, 256, 1280) == kernels.GF2_M4R
-    assert kernels.gf2_form(64, 1024, 1280, nb=32) == kernels.GF2_M4R  # a batched W decode
-    assert kernels.gf2_form(999, 72, 256000) == kernels.GF2_M4R  # Wut over 200 blocks
-    assert kernels.gf256_form(10, 1008, 256000) == kernels.GF256_LOGEXP  # HDPC over 200 blocks
-    assert kernels.gf256_form(128, 128, 256000) == kernels.GF256_M4R  # Vinv
-    assert kernels.gf256_form(10, 1008, 1280) == kernels.GF256_M4R
-    assert kernels.gf256_form(110, 1024, 1280, nb=32) == kernels.GF256_M4R  # residual chunk
+    """K2 has one form; K3 runs four-Russians tables but for wide products of
+    few rows (log/exp), and the forms tool names the form the rule runs."""
+    assert kernels.gf256_form(10, 256000) == kernels.GF256_LOGEXP  # HDPC over 200 blocks
+    assert kernels.gf256_form(128, 256000) == kernels.GF256_M4R  # Vinv
+    assert kernels.gf256_form(10, 1280) == kernels.GF256_M4R
+    assert kernels.gf256_form(110, 1280) == kernels.GF256_M4R  # residual chunk
+    assert matmul_forms.form("gf256", 10, 256000) == "logexp"
+    assert matmul_forms.form("gf256", 110, 1280) == matmul_forms.form("gf2", 10, 256000) == "m4r"
 
 
-def test_forms_tool_names_the_wrappers_forms():
-    from nanorq_tpu_torch.tools import matmul_forms
+@pytest.mark.parametrize("kind,nb,m,k,t,by", [
+    ("gf2", 1, 256, 256, 256000, "bytes"),  # a chunk inverse over 200 blocks
+    ("gf2", 1, 999, 72, 256000, "bytes"),  # Wut, cut
+    ("gf256", 1, 10, 1008, 256000, "bytes"),  # HDPC, cut
+    ("gf256", 1, 128, 128, 256000, "operations"),  # Vinv
+    ("gf2", 200, 64, 1024, 1280, "bytes"),  # the batched W decode
+    ("gf256", 32, 110, 1024, 1280, "operations"),  # the residual chunk
+])
+def test_forms_tool_bounds(kind, nb, m, k, t, by):
+    """The bound is the larger of the bytes and the fewer of the two
+    methods' operations; the four-Russians XORs are the fewer at every
+    main-path shape."""
+    b = matmul_forms.bounds(kind, nb, m, k, t)
+    a_bytes = m * (k // 8 if kind == "gf2" else k)
+    assert b["bytes_ms"] == pytest.approx(nb * (a_bytes + k * t + m * t) / 3.35e12 * 1e3)
+    assert b["m4r_ms"] < b["tc_ms"]
+    assert b["bound_by"] == by
+    assert b["bound_ms"] == max(b["bytes_ms"], b["m4r_ms"])
+    assert b["form_floor_ms"] > 0
 
-    assert matmul_forms.FORMS == {"gf2": {"tc": kernels.GF2_TC, "xor": kernels.GF2_XOR, "m4r": kernels.GF2_M4R},
-                                  "gf256": {"comp": kernels.GF256_COMP, "logexp": kernels.GF256_LOGEXP,
-                                            "m4r": kernels.GF256_M4R}}
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_empty_contraction_is_zero(dim):
+    """k = 0: both kernels give zeros, or leave out= as it is."""
+    lead = (2,) if dim == 3 else ()
+    X = torch.zeros(*lead, 0, 9, dtype=torch.uint8)
+    for mm, A in ((kernels.gf2_matmul, torch.zeros(*lead, 5, 0, dtype=torch.uint8)),
+                  (kernels.gf256_matmul, torch.zeros(*lead, 5, 0, dtype=torch.uint8))):
+        assert torch.equal(mm(A, X), torch.zeros(*lead, 5, 9, dtype=torch.uint8))
+        out = torch.full((*lead, 5, 9), 7, dtype=torch.uint8)
+        assert mm(A, X, out=out) is out and bool((out == 7).all())
 
 
 def _card():
@@ -97,16 +129,24 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["gf2_ragged", "gf2_m5_split3", "gf2_m13_t8", "gf2_nb1_splitmax",
-                                  "gf2_b200_ragged", "gf256_ragged", "gf256_m3_split5", "gf256_m1_t16",
-                                  "gf256_b200"])
+@pytest.mark.parametrize("name", list(matmul_forms.EDGES))
 def test_edge_shapes_on_card(name):
-    """k not a multiple of the tile, m < 16, t % 16 != 0, forced k splits,
-    nb = 1 and nb = 200: every form equals the plain version, alone and
-    XORed into out=."""
-    from nanorq_tpu_torch.tools import matmul_forms
-
+    """k not a multiple of the tile, m < 16, t % 16 != 0, k split across
+    blocks by the launch rule, nb = 1 and nb = 200, K3's log/exp form split
+    and ragged: each kernel equals the plain version, alone and XORed into
+    out=."""
     matmul_forms.measure(name, matmul_forms.EDGES[name], _card(), 1, timed=False)
+
+
+@pytest.mark.cuda
+def test_empty_contraction_launches_nothing_on_card():
+    """k = 0 on the card: zeros, and no launch counted."""
+    dev = _card()
+    before = dict(kernels.LAUNCHES)
+    X = torch.zeros(0, 32, dtype=torch.uint8, device=dev)
+    assert not kernels.gf2_matmul(torch.zeros(4, 0, dtype=torch.uint8, device=dev), X).any()
+    assert not kernels.gf256_matmul(torch.zeros(4, 0, dtype=torch.uint8, device=dev), X).any()
+    assert kernels.LAUNCHES == before
 
 
 @pytest.mark.cuda
