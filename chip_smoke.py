@@ -10,23 +10,31 @@ Phases, each printing its own lines and its seconds:
    inputs, bit-exact, at the shapes the K=1000 main path gives it (t = 1280
    and t = 200*1280) and at a ragged shape; kernel and plain times (the
    three gather probes at K1's shapes, with K1's time beside theirs), each
-   gather's bytes bound and, at width 1, torch.index_select's time (K1's
-   library_ms); K2 and K3 through tools/matmul_forms.py (the encoder's own
-   matrices, the single and batched W decodes -- nb = 200 -- and the
-   residual chunk, then the edge shapes: ragged k and t, m < 16, k split
-   across blocks, nb = 1 and 200), with their bounds; an index outside the
-   source makes gather_xor raise, a ragged width makes the probes raise;
+   gather's bytes bound and, at width 1, torch.index_select's time (the
+   library_ms of a kernel whose heaviest shape has width 1); K1 at every
+   gather of one warm encode (tools/gather_launches.py: the 17 launches of
+   a replay and a repair LT combine at t = 200*1280, recorded as they run,
+   in every mode -- out=, rows, zero_index -- each bit-exact, timed, with
+   its bounds, index_select beside the width-1 ones, and the sums); K2 and
+   K3 through tools/matmul_forms.py (the encoder's own matrices, the single
+   and batched W decodes -- nb = 200 -- and the residual chunk, then the
+   edge shapes: ragged k and t, m < 16, k split across blocks, nb = 1 and
+   200), with their bounds; an index outside the source makes gather_xor
+   raise, a ragged width makes the probes raise;
 3. encode: an object of Z=200 blocks x K=1000 x T=1280 through the port's
    Encoder and codec.batch (generate + 200 repair symbols per block);
 4. decode: 6% source loss + 5% repair overhead per block, recovered by
    Decoder.repair_all(backend="device"); the warm run must take one K1 and
-   one K2 launch per stacked batch of blocks;
+   one K2 launch per stacked batch of blocks; its first K1 launch (a stacked
+   gather at t = 1280) is timed after the main path as the encode's are;
 5. checks and times: the systematic property on every block, one block
    against the numpy oracle (nanorq_tpu_torch.host), the decoded bytes, the
-   kernel launch counts of the main path (phases 3-4), no out-of-range
-   gather index in it, and the encode/decode wall times; then one warm
-   encode and one warm device decode under torch.profiler: the device time
-   of each kernel and copy, summed over the run, beside its wall time;
+   kernel launch counts of the main path (phases 3-4: 17 K1 launches per
+   encode), no out-of-range gather index in it, and the encode/decode wall
+   times; then one warm encode and one warm device decode under
+   torch.profiler: the device time of each kernel and copy, summed over the
+   run, beside its wall time; the encode must show 17 K1 kernels and no
+   torch.cat copy;
 6. probe path: nanorq_tpu_torch.tools.gather_probe over both probe tables,
    every line bit-exact, with its launch counts;
 7. decode arms: the phase-4 object and losses through repair_all with
@@ -194,6 +202,14 @@ def phase_parity(dev, rng, P) -> dict:
     ix = torch.from_numpy(rng.integers(0, 300, (100, 5)).astype(np.int32)).to(dev)
     cases["gather_xor"].append(("ragged src[300,1283] idx(100,5)", False,
                                 lambda: kernels.gather_xor(src, ix), lambda: gfmat.xor_reduce_gather(src, ix), None))
+    # ragged, with output rows and the implicit zero row: index 299 of src[:299]
+    rows = torch.from_numpy(rng.permutation(150)[:100].astype(np.int32)).to(dev)
+    kout, pout = (zero_last(u8(150, tr)) for _ in range(2))
+    pout.copy_(kout)
+    cases["gather_xor"].append((
+        "ragged src[299,1283] idx(100,5) rows out[150] zero_index", False,
+        lambda: kernels.gather_xor(src[:299], ix, out=kout, rows=rows, zero_index=299),
+        lambda: gfmat.xor_reduce_gather(src[:299], ix, out=pout, rows=rows, zero_index=299), None))
     for name, fn in (("gather_v1", lambda: kernels.gather_v1(src, ix)),
                      ("gather_v2", lambda: kernels.gather_v2(src, ix, kernels.probe_counts(ix, 299), 299)),
                      ("gather_db", lambda: kernels.gather_db(src, ix))):
@@ -214,7 +230,7 @@ def phase_parity(dev, rng, P) -> dict:
                 continue
             raise AssertionError(f"gather_xor took index {bad} of a 300-row source")
     _say("parity", kernel="gather_xor", out_of_range_index="IndexError")
-    report, k1_ms = {}, {}
+    report, k1_ms, lib_ms = {}, {}, {}
     for name, rows in cases.items():
         if not rows:  # K2 and K3: phase_matmul below
             continue
@@ -232,8 +248,11 @@ def phase_parity(dev, rng, P) -> dict:
             extra = {}
             if name == "gather_xor":
                 k1_ms[label] = ms
-                if label in library:
-                    extra["library_ms"] = f"{_cuda_ms(library[label], 10 if main else 20):.4f}"
+            lib = k1 or label
+            if lib in library:  # a width-1 gather: index_select's function
+                if lib not in lib_ms:
+                    lib_ms[lib] = _cuda_ms(library[lib], 10 if main else 20)
+                extra["library_ms"] = f"{lib_ms[lib]:.4f}"
             if k1 is not None:
                 extra["k1_ms"] = f"{k1_ms[k1]:.4f}"
             bound = bounds.get(k1 or label)
@@ -247,12 +266,38 @@ def phase_parity(dev, rng, P) -> dict:
         b_ms, b_by = bounds[rows_k1(rows, main_shape)]
         report[name] = {"max_abs_err": worst, "ms": main_ms, "plain_ms": main_plain, "shape": main_shape,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": main_lib}
+    report["gather_xor"] = phase_k1_launches(dev)
     report.update(phase_matmul(dev))
     if kernels.take_index_errors(dev) or kernels.take_count_errors(dev):
         raise AssertionError("a parity launch flagged an index or a count")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return report
+
+
+def _k1_line(tag, line: dict) -> None:
+    _say("k1", launch=tag, **{k: (f"{v:.4f}" if isinstance(v, float) else str(v).replace(" ", ""))
+                              for k, v in line.items()})
+
+
+def phase_k1_launches(dev) -> dict:
+    """K1 at each of the 17 launches of one warm encode at t = Z*T
+    (tools/gather_launches.py), bit-exact and timed; the sums per encode.
+    Returns K1's report at its heaviest launch."""
+    from nanorq_tpu_torch.tools import gather_launches
+
+    rec = gather_launches.encode_launches(dev, WIDE, SEED)
+    if len(rec) != gather_launches.ENCODE_LAUNCHES:
+        raise AssertionError(f"one encode ran {len(rec)} K1 launches, expected {gather_launches.ENCODE_LAUNCHES}")
+    lines = [gather_launches.measure(r, 10) for r in rec]
+    del rec
+    for i, line in enumerate(lines):
+        _k1_line(i + 1, line)
+    _k1_line("sum", gather_launches.totals(lines))
+    top = max(lines, key=lambda x: x["ms"])
+    torch.cuda.empty_cache()
+    return {"max_abs_err": 0, "ms": top["ms"], "plain_ms": top["plain_ms"], "shape": top["shape"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes", "library_ms": top["library_ms"]}
 
 
 def phase_device() -> tuple[str, str, torch.device]:
@@ -337,7 +382,8 @@ def phase_decode(enc, data, reps, dev, deliveries):
     """repair_all(backend="device") at 6% loss + 5% overhead on every block,
     cold (every pattern solved fresh) then warm (plans cached).  The warm
     run must stack its dense-W blocks: one K1 and one K2 launch per batch
-    of up to Decoder._BATCH_FLUSH blocks, not one pair per block."""
+    of up to Decoder._BATCH_FLUSH blocks, not one pair per block.  Returns
+    the warm run's first K1 launch (`kernels.record_gathers`) too."""
     from nanorq_tpu_torch.codec import cache as tcache
     from nanorq_tpu_torch.codec.api import Decoder
     from nanorq_tpu_torch.ops import kernels
@@ -345,7 +391,8 @@ def phase_decode(enc, data, reps, dev, deliveries):
     tcache.clear_decoder_cache()
     out_cold, cold_s, preps = _decode_once(enc, data, reps, deliveries, dev, "device")
     before = dict(kernels.LAUNCHES)
-    out_warm, warm_s, _ = _decode_once(enc, data, reps, deliveries, dev, "device")
+    with kernels.record_gathers() as rec:
+        out_warm, warm_s, _ = _decode_once(enc, data, reps, deliveries, dev, "device")
     warm = {n: kernels.LAUNCHES[n] - before[n] for n in before}
     batches = -(-Z // Decoder._BATCH_FLUSH)
     _say("decode", warm_launches=json.dumps(warm), batches=batches)
@@ -359,7 +406,7 @@ def phase_decode(enc, data, reps, dev, deliveries):
         else:
             kinds["structured"] += 1
     gaps = sum(p[0].size for p in preps)
-    return (out_cold, out_warm), (cold_s, warm_s), kinds, gaps
+    return (out_cold, out_warm), (cold_s, warm_s), kinds, gaps, rec[0]
 
 
 def _mbps(nbytes: int, s: float) -> str:  # BASELINE.md's unit: 8 * bytes / (2**20 * seconds)
@@ -458,6 +505,7 @@ def phase_profile(enc, batch, data, reps, dev, deliveries) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from nanorq_tpu_torch.codec import batch as tbatch
+    from nanorq_tpu_torch.tools import gather_launches
 
     report = {}
     for name in ("encode", "decode"):
@@ -483,10 +531,16 @@ def phase_profile(enc, batch, data, reps, dev, deliveries) -> dict:
                 per[key] = (tot + ms, cnt + e.count)
         device_ms = sum(ms for ms, _ in per.values())
         top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
+        k1 = [v for k, v in per.items() if "gather_xor_kernel" in k]
         report[name] = {"wall_s": wall, "device_ms": device_ms}
         _say("profile", run=name, wall_s=f"{wall:.4f}", device_ms=f"{device_ms:.3f}",
-             busy=f"{device_ms / 1e3 / wall:.3f}",
-             top=json.dumps({k: [round(ms, 4), n] for k, (ms, n) in top}))
+             busy=f"{device_ms / 1e3 / wall:.3f}", k1_ms=f"{sum(ms for ms, _ in k1):.4f}",
+             k1_launches=sum(c for _, c in k1), top=json.dumps({k: [round(ms, 4), n] for k, (ms, n) in top}))
+        if name == "encode":
+            cats = [k for k in per if "CatArray" in k]
+            if sum(c for _, c in k1) != gather_launches.ENCODE_LAUNCHES or cats:
+                raise AssertionError(f"the profiled encode ran {sum(c for _, c in k1)} K1 kernels "
+                                     f"(expected {gather_launches.ENCODE_LAUNCHES}) and the copies {cats}")
     return report
 
 
@@ -527,6 +581,7 @@ def main() -> None:
     from nanorq_tpu_torch.codec.api import Encoder
     from nanorq_tpu_torch.host import MemoryIO
     from nanorq_tpu_torch.ops import kernels
+    from nanorq_tpu_torch.tools import gather_launches
 
     F = Z * K * T
     enc = Encoder(F, T, Al=8, Z=Z, device=dev)
@@ -548,11 +603,16 @@ def main() -> None:
     _say("encode", blocks=Z, K=K, T=T, bytes=F, load_s=f"{load_s:.3f}",
          cold_s=f"{enc_s[0]:.4f}", warm_s=f"{enc_s[1]:.4f}", launches=json.dumps(enc_launches))
     deliveries = _deliveries(SEED + 1)
-    outs, dec_s, kinds, ngaps = phase_decode(enc, data, reps, dev, deliveries)  # phase 4
+    outs, dec_s, kinds, ngaps, dec_gather = phase_decode(enc, data, reps, dev, deliveries)  # phase 4
     main_launches = dict(kernels.LAUNCHES)  # the main path ends here
     if kernels.take_index_errors(dev):
         raise AssertionError("a gather of the main path met an index outside its source")
+    if enc_launches["gather_xor"] != 2 * gather_launches.ENCODE_LAUNCHES:
+        raise AssertionError(f"cold + warm encode ran {enc_launches['gather_xor']} K1 launches, "
+                             f"expected 2 x {gather_launches.ENCODE_LAUNCHES}")
     dec_launches = {n: main_launches[n] - enc_launches[n] for n in main_launches}
+    _k1_line("decode", gather_launches.measure(dec_gather, 20))
+    del dec_gather
     _say("decode", loss=0.06, overhead=0.05, gaps=ngaps, cold_s=f"{dec_s[0]:.4f}",
          warm_s=f"{dec_s[1]:.4f}", plans=json.dumps(kinds), launches=json.dumps(dec_launches))
     _say("phase", name="encode+decode", seconds=f"{time.perf_counter() - t0:.2f}")

@@ -1,10 +1,10 @@
 // Shared helpers of the payload kernels.
 //
-// Every kernel works on byte rows of width t, contiguous, one thread per
-// "lane" of a row: a 16-byte uint4 when t % 16 == 0 and the base pointers
-// are 16-byte aligned (the codec's T = 1280 and every multiple of it), else a
-// single byte.  The host entry points pick the lane type, launch on the
-// caller's stream, allocate nothing and return cudaGetLastError().
+// Every kernel works on byte rows of width t, contiguous, in "lanes": a
+// 16-byte uint4 when t % 16 == 0 and the base pointers are 16-byte aligned
+// (the codec's T = 1280 and every multiple of it), else a single byte.  The
+// host entry points pick the lane type, launch on the caller's stream,
+// allocate nothing and return cudaGetLastError().
 #pragma once
 
 #include <cstdint>

@@ -1,82 +1,162 @@
-// K1 gather_xor: out[i, :] (^)= XOR_k src[idx[i, k], :]
+// K1 gather_xor: out[o(i), :] (^)= XOR_k src[idx[i, k], :],  o(i) = rows ? rows[i] : i
 //
-// Replaces the TPU kernel gather_xor_pallas (nanorq_tpu/ops/pallas_kernels.py,
-// gather_xor_pallas with its body _gather_kernel_factory), which starts R*w
-// row-tile DMAs into VMEM and XOR-reduces them on the VPU.
+// Replaces the TPU kernel gather_xor_pallas (nanorq_tpu/ops/pallas_kernels.py:290,
+// body _gather_kernel_factory), which starts R*w row-tile DMAs into VMEM and
+// XOR-reduces them on the VPU.
 //
-// What bounds it on the H100: device-memory bytes.  It reads n*w*t bytes of
-// randomly chosen source rows and writes n*t; there is one XOR per byte read,
-// far below the card's compute.  Design: one thread owns one 16-byte lane of
-// one output row and walks that row's w indices, so every source row read is
-// a fully coalesced run of 16-byte loads across the warp, and the indices
-// are loaded once per thread from L1 (all lanes of a row read the same
-// address, a broadcast).  Four indices are resolved before their loads are
-// started, to keep several independent row reads in flight per thread.
-// An index outside [0, S) is an error: the kernel reads nothing for it and
-// sets the caller's device flag *err, which the wrapper reads (and clears) in
-// its checked mode; the codec's sentinel indices point at an all-zero row of
-// src, inside [0, S).
-// With `accumulate` the result is XORed into out instead of stored.
+// What bounds it on the H100: device-memory bytes.  It reads the distinct
+// source rows its indices name and writes n output rows (reads them too when
+// it accumulates); one XOR per byte read is far below the card's compute.  To
+// run at the memory rate the card needs ~2-3 MB of loads in flight, and few
+// instructions per byte.  The design:
+//  - a 1-D grid of tiles, each blockDim.y rows by blockDim.x * U 16-byte lanes,
+//    with no cap but 2^31 tiles;
+//  - each thread owns U lanes of one row, blockDim.x apart, so each of its
+//    loads is one coalesced 16-byte run across the warp, and it keeps G
+//    indices x U lanes of loads in flight (width 1: 4 lanes; wider: 4 indices
+//    x 2 lanes);
+//  - a warp lies within one row: each lane loads and checks one of the row's
+//    indices, once, and turns it into a 64-bit row offset that the warp
+//    shares by shuffles;
+//  - consecutive tiles take the same column chunk of consecutive row blocks,
+//    so the tiles resident at one time read one column chunk of the source
+//    and a wide gather (a source row read by many output rows) finds it in L2;
+//  - `rows` names each result's output row: a placement into a larger buffer
+//    is folded into the gather (the rows are distinct, so no atomics);
+//  - with `zero_ok`, index S reads as a zero row and costs no load; every
+//    other index outside [0, S), and an output row outside [0, n_out), sets
+//    the caller's device flag *err and is not read or written;
+//  - `evict_first` marks the loads and stores as streaming (__ldcs/__stcs).
+// Ragged widths (t % 16 != 0, or an unaligned base) take one byte per lane.
 #include "common.cuh"
 
 namespace nrq {
 
-template <typename V>
-__device__ __forceinline__ V load_row(const V* __restrict__ src, int32_t r, int64_t S,
-                                      int64_t lanes, int64_t col, int* err) {
-  if (r >= 0 && r < S) return src[static_cast<int64_t>(r) * lanes + col];
-  *err = 1;  // every writer stores the same value, so the race is benign
-  return vzero<V>();
+template <bool EF, typename V>
+__device__ __forceinline__ V load(const V* p) {
+  if constexpr (EF) return __ldcs(p);
+  else return __ldg(p);
 }
 
-template <typename V>
-__global__ void gather_xor_kernel(const V* __restrict__ src, int64_t S, int64_t lanes,
-                                  const int32_t* __restrict__ idx, int64_t n, int64_t w,
-                                  V* __restrict__ out, int accumulate, int* err) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y;
-  const int64_t col = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
-  if (row >= n || col >= lanes) return;
-  const int32_t* ix = idx + row * w;
-  V acc = accumulate ? out[row * lanes + col] : vzero<V>();
-  int64_t j = 0;
-  for (; j + 4 <= w; j += 4) {
-    const int32_t r0 = ix[j], r1 = ix[j + 1], r2 = ix[j + 2], r3 = ix[j + 3];
-    const V v0 = load_row(src, r0, S, lanes, col, err);
-    const V v1 = load_row(src, r1, S, lanes, col, err);
-    const V v2 = load_row(src, r2, S, lanes, col, err);
-    const V v3 = load_row(src, r3, S, lanes, col, err);
-    acc = vxor(acc, vxor(vxor(v0, v1), vxor(v2, v3)));
+template <bool EF, typename V>
+__device__ __forceinline__ void store(V* p, V v) {
+  if constexpr (EF) __stcs(p, v);
+  else *p = v;
+}
+
+template <typename V, int U, int G, bool EF>
+__global__ void __launch_bounds__(256)
+gather_xor_kernel(const V* __restrict__ src, int64_t S, int64_t lanes,
+                  const int32_t* __restrict__ idx, int64_t n, int w,
+                  const int32_t* __restrict__ rows, int64_t n_out, V* __restrict__ out,
+                  int accumulate, int zero_ok, int64_t row_blocks, int* err) {
+  const int64_t tile = blockIdx.x;
+  const int64_t i = (tile % row_blocks) * blockDim.y + threadIdx.y;
+  if (i >= n) return;  // the whole warp: it lies within one row
+  const int64_t col = (tile / row_blocks) * blockDim.x * U + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  int64_t orow = i;
+  if (rows) {
+    orow = rows[i];
+    if (orow < 0 || orow >= n_out) {  // the whole warp again
+      *err = 1;
+      return;
+    }
   }
-  for (; j < w; ++j) acc = vxor(acc, load_row(src, ix[j], S, lanes, col, err));
-  out[row * lanes + col] = acc;
+  V* o = out + orow * lanes;
+  V acc[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t c = col + static_cast<int64_t>(u) * blockDim.x;
+    acc[u] = (accumulate && c < lanes) ? o[c] : vzero<V>();
+  }
+  const int32_t* ix = idx + i * w;
+  for (int j0 = 0; j0 < w; j0 += 32) {
+    // lane l resolves index j0 + l: its row offset, or -1 (a zero row, an
+    // index past the row's last)
+    long long off = -1;
+    if (j0 + lane < w) {
+      const int32_t r = ix[j0 + lane];
+      if (r >= 0 && r < S) off = static_cast<long long>(r) * lanes;
+      else if (!(zero_ok && r == S)) *err = 1;
+    }
+    const int m = min(32, w - j0);
+    for (int j = 0; j < m; j += G) {  // j + G <= 32: G divides 32
+      long long offs[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) offs[g] = __shfl_sync(0xffffffffu, off, j + g);
+      V v[G][U];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int64_t c = col + static_cast<int64_t>(u) * blockDim.x;
+          v[g][u] = (offs[g] >= 0 && c < lanes) ? load<EF>(src + offs[g] + c) : vzero<V>();
+        }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int u = 0; u < U; ++u) acc[u] = vxor(acc[u], v[g][u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t c = col + static_cast<int64_t>(u) * blockDim.x;
+    if (c < lanes) store<EF>(o + c, acc[u]);
+  }
+}
+
+template <typename V, int U, int G>
+static cudaError_t launch_gather(const void* src, int64_t S, int64_t lanes, const int32_t* idx,
+                                 int64_t n, int64_t w, const int32_t* rows, int64_t n_out,
+                                 void* out, int accumulate, int zero_ok, int evict_first,
+                                 int* err, cudaStream_t stream) {
+  // threads along a row: enough for its lanes at U each, a multiple of 32, at most 256
+  const int64_t per = (lanes + U - 1) / U;
+  const int bx = static_cast<int>(per >= 256 ? 256 : (per + 31) / 32 * 32);
+  const int by = 256 / bx;
+  const int64_t row_blocks = (n + by - 1) / by;
+  const int64_t chunks = (lanes + static_cast<int64_t>(bx) * U - 1) / (static_cast<int64_t>(bx) * U);
+  if (w > 0x7fffffff || row_blocks * chunks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(row_blocks * chunks)), block(bx, by);
+  auto* kern = evict_first ? &gather_xor_kernel<V, U, G, true> : &gather_xor_kernel<V, U, G, false>;
+  kern<<<grid, block, 0, stream>>>(static_cast<const V*>(src), S, lanes, idx, n, static_cast<int>(w),
+                                   rows, n_out, static_cast<V*>(out), accumulate, zero_ok,
+                                   row_blocks, err);
+  return cudaGetLastError();
 }
 
 template <typename V>
-static cudaError_t launch_gather(const void* src, int64_t S, int64_t lanes, const int32_t* idx,
-                          int64_t n, int64_t w, void* out, int accumulate, int* err,
-                          cudaStream_t stream) {
-  const int bx = lane_threads(lanes);
-  const int by = 256 / bx;
-  const int64_t gy = (lanes + bx - 1) / bx;
-  const int64_t gx = (n + by - 1) / by;
-  if (gy > 65535 || gx > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  gather_xor_kernel<V><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
-                         dim3(bx, by), 0, stream>>>(
-      static_cast<const V*>(src), S, lanes, idx, n, w, static_cast<V*>(out), accumulate, err);
-  return cudaGetLastError();
+static cudaError_t launch_width(const void* src, int64_t S, int64_t lanes, const int32_t* idx,
+                                int64_t n, int64_t w, const int32_t* rows, int64_t n_out,
+                                void* out, int accumulate, int zero_ok, int evict_first,
+                                int* err, cudaStream_t stream) {
+  if (w <= 1)
+    return launch_gather<V, 4, 1>(src, S, lanes, idx, n, w, rows, n_out, out, accumulate, zero_ok,
+                                  evict_first, err, stream);
+  return launch_gather<V, 2, 4>(src, S, lanes, idx, n, w, rows, n_out, out, accumulate, zero_ok,
+                                evict_first, err, stream);
 }
 
 }  // namespace nrq
 
-// src uint8 [S, t], idx int32 [n, w], out uint8 [n, t]; all contiguous.
-// err: one device int32, set to 1 when an index lies outside [0, S).
-extern "C" int nrq_gather_xor(const void* src, int64_t S, int64_t t, const void* idx,
-                              int64_t n, int64_t w, void* out, int accumulate,
-                              void* err, void* stream) {
+// src uint8 [S, t], idx int32 [n, w], out uint8 [n_out, t]; all contiguous.
+// rows: int32 [n] distinct output rows, or null for out row i (then n_out = n).
+// accumulate: XOR into out instead of storing.  zero_ok: index S reads as a
+// zero row.  evict_first: streaming loads and stores.
+// err: one device int32, set to 1 on an index outside [0, S) (S allowed with
+// zero_ok) or an output row outside [0, n_out).
+extern "C" int nrq_gather_xor(const void* src, int64_t S, int64_t t, const void* idx, int64_t n,
+                              int64_t w, const void* rows, int64_t n_out, void* out,
+                              int accumulate, int zero_ok, int evict_first, void* err,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* ix = static_cast<const int32_t*>(idx);
+  const int32_t* rw = static_cast<const int32_t*>(rows);
   int* e = static_cast<int*>(err);
   if (t % 16 == 0 && nrq::aligned16(src) && nrq::aligned16(out))
-    return nrq::launch_gather<uint4>(src, S, t / 16, ix, n, w, out, accumulate, e, s);
-  return nrq::launch_gather<uint8_t>(src, S, t, ix, n, w, out, accumulate, e, s);
+    return nrq::launch_width<uint4>(src, S, t / 16, ix, n, w, rw, n_out, out, accumulate, zero_ok,
+                                    evict_first, e, s);
+  return nrq::launch_width<uint8_t>(src, S, t, ix, n, w, rw, n_out, out, accumulate, zero_ok,
+                                    evict_first, e, s);
 }

@@ -55,13 +55,20 @@ def _lib_path(build_dir: str) -> str:
     return os.path.join(build_dir, "libnanorq_host.so")
 
 
+def _tmp(path: str) -> str:
+    """This process's temporary name for `path`: concurrent builds (test
+    workers on a fresh checkout) each write their own file and install it
+    with an atomic os.replace."""
+    return f"{path}.{os.getpid()}.tmp"
+
+
 def _build(build_dir: str, srchash: str) -> bool:
     lib_path = _lib_path(build_dir)
     try:
         os.makedirs(build_dir, exist_ok=True)
         cmd = [
             "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-            "-pthread", "-o", lib_path + ".tmp", _SRC,
+            "-pthread", "-o", _tmp(lib_path), _SRC,
         ]
         san = _sanitize_mode()
         if san:
@@ -73,15 +80,15 @@ def _build(build_dir: str, srchash: str) -> bool:
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
             return False
-        os.replace(lib_path + ".tmp", lib_path)
+        os.replace(_tmp(lib_path), lib_path)
         # stamp written after a successful build: the rebuild decision is
         # keyed on source *content*, never mtimes (git does not preserve
         # mtimes, and a stale -march=native blob from another host could
         # SIGILL)
         stamp = lib_path + ".srchash"
-        with open(stamp + ".tmp", "w") as f:
+        with open(_tmp(stamp), "w") as f:
             f.write(srchash)
-        os.replace(stamp + ".tmp", stamp)
+        os.replace(_tmp(stamp), stamp)
         return True
     except OSError:
         return False  # unwritable location: the caller tries the next one

@@ -27,9 +27,10 @@
 #include <utility>
 #include <vector>
 
+#include <sys/mman.h>
+
 #if defined(__AVX2__) || defined(__SSSE3__)
 #include <immintrin.h>
-#include <sys/mman.h>
 #endif
 
 namespace {
@@ -1607,7 +1608,9 @@ struct HugeBuf {
     }
     p = (uint8_t*)m;
     cap = r;
+#ifdef MADV_HUGEPAGE
     if (r >= huge) madvise(p, r, MADV_HUGEPAGE);
+#endif
   }
 };
 

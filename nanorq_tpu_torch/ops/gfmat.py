@@ -97,12 +97,25 @@ def gf256_matmul_batch(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def xor_reduce_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[i] = XOR_k src[idx[i,k]]: src [S, t], idx [n, w] -> [n, t]."""
+def xor_reduce_gather(src: torch.Tensor, idx: torch.Tensor, *, out: torch.Tensor | None = None,
+                      rows: torch.Tensor | None = None, zero_index: int | None = None) -> torch.Tensor:
+    """res[i] = XOR_k src[idx[i,k]]: src [S, t], idx [n, w] -> [n, t].
+
+    zero_index (= S): that index reads as a zero row.  With `out`, res is
+    XORed into it in place: into out[rows[i]] when rows (int [n], distinct)
+    is given, else into out[i]."""
+    if zero_index is not None:
+        src = torch.cat([src, src.new_zeros(1, src.shape[1])])
     idx = idx.to(torch.int64)
-    out = src[idx[:, 0]]
+    res = src.new_zeros(idx.shape[0], src.shape[1]) if idx.shape[1] == 0 else src[idx[:, 0]]
     for j in range(1, idx.shape[1]):
-        out ^= src[idx[:, j]]
+        res ^= src[idx[:, j]]
+    if out is None:
+        return res
+    if rows is None:
+        out ^= res
+    else:
+        out[rows.to(torch.int64)] ^= res
     return out
 
 

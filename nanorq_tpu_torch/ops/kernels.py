@@ -15,6 +15,8 @@ it in place (the replay accumulates gathers and products into row blocks it
 owns) instead of being returned in a fresh tensor.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -119,36 +121,88 @@ def _flag(flags: dict, dev: torch.device) -> torch.Tensor:
     return flag
 
 
+def check_rows(rows, n_out: int) -> None:
+    """Refuse output rows (numpy or torch, 1-D) that repeat or lie outside
+    [0, n_out): gather_xor's `rows` writes each row once, without atomics."""
+    rows = np.asarray(rows.cpu() if isinstance(rows, torch.Tensor) else rows, np.int64)
+    if rows.size and (rows.min() < 0 or rows.max() >= n_out):
+        raise ValueError(f"rows: an output row lies outside [0, {n_out})")
+    if np.unique(rows).size != rows.size:
+        raise ValueError("rows: an output row repeats")
+
+
+_RECORD: list | None = None  # set inside record_gathers()
+
+
+@contextlib.contextmanager
+def record_gathers():
+    """Inside, every gather_xor launch on CUDA also appends its operands to
+    the list yielded, as {"src", "idx", "out", "rows", "zero_index"} (out:
+    None for a fresh result), so that a tool can time each launch of a path
+    again (`tools/gather_launches.py`)."""
+    global _RECORD
+    _RECORD = rec = []
+    try:
+        yield rec
+    finally:
+        _RECORD = None
+
+
+# K1's loads and stores are marked streaming (evict-first) for gathers of
+# this width or less: their rows are read once (PERF.md, PR 4)
+GATHER_EVICT_FIRST_MAX_W = 1
+
+
 def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = None, *,
+               rows: torch.Tensor | None = None, zero_index: int | None = None,
                check: bool = False) -> torch.Tensor:
     """K1: out[i] = XOR_k src[idx[i, k]];  src uint8 [S, t], idx int32 [n, w].
 
-    Indices must lie in [0, S); the codec's sentinels point at a zero row.
-    An index outside raises IndexError: always on the CPU; on CUDA the
-    kernel flags it on the device, and the wrapper raises when `check` is
-    set (which waits for the kernel) -- else the flag stays set for
-    `take_index_errors`."""
+    rows (int32 [n], distinct, needs `out`): result row i is XORed into
+    out[rows[i]], and no other row of out is touched; out may then have any
+    number of rows.  The callers check their rows once, where they build
+    them (`check_rows`); the CPU path checks them on every call.
+
+    Indices must lie in [0, S).  zero_index=S, opt-in, makes index S read
+    as a zero row with no row of src behind it.  Any other index outside
+    raises IndexError: always on the CPU; on CUDA the kernel flags it (and
+    an output row outside out) on the device, and the wrapper raises when
+    `check` is set (which waits for the kernel) -- else the flag stays set
+    for `take_index_errors`."""
     _bytes(src, "src")
     _need(idx.dtype == torch.int32 and idx.dim() == 2 and idx.is_contiguous(),
           f"idx: expected a contiguous 2-D int32 tensor, got {idx.dtype} {tuple(idx.shape)}")
     S, t = src.shape
     n, w = idx.shape
-    out = _out(out, (n, t), src, idx)
-    if _device_kind(src, idx) == "cpu":
-        if n == 0 or w == 0:
-            return _plain(src.new_zeros(n, t), out)
-        if int(idx.min()) < 0 or int(idx.max()) >= S:
-            raise IndexError(f"gather_xor: an index lies outside [0, {S})")
-        return _plain(gfmat.xor_reduce_gather(src, idx), out)
+    _need(zero_index is None or zero_index == S, f"zero_index: {zero_index}, must be S={S}")
+    inputs = (src, idx)
+    if rows is not None:
+        _need(out is not None, "rows: names rows of out, and no out was given")
+        _need(rows.dtype == torch.int32 and tuple(rows.shape) == (n,) and rows.is_contiguous(),
+              f"rows: expected a contiguous int32 [{n}], got {rows.dtype} {tuple(rows.shape)}")
+        _need(out.dim() == 2, "out: expected a 2-D tensor")
+        inputs += (rows,)
+    out = _out(out, (n if rows is None else out.shape[0], t), *inputs)
+    hi = S if zero_index is None else S + 1
+    if _device_kind(*inputs) == "cpu":
+        if n and w and (int(idx.min()) < 0 or int(idx.max()) >= hi):
+            raise IndexError(f"gather_xor: an index lies outside [0, {hi})")
+        if rows is not None:
+            check_rows(rows, out.shape[0])
+        return gfmat.xor_reduce_gather(src, idx, out=out, rows=rows, zero_index=zero_index)
     acc = out is not None
     res = out if acc else torch.empty((n, t), dtype=torch.uint8, device=src.device)
     if n and t:
         lib = _build.load()
         with torch.cuda.device(src.device):
             _launch("gather_xor", lib.nrq_gather_xor, src.data_ptr(), S, t, idx.data_ptr(), n, w,
-                    res.data_ptr(), int(acc), _flag(_INDEX_ERR, src.device).data_ptr(), _stream(src.device))
+                    None if rows is None else rows.data_ptr(), res.shape[0], res.data_ptr(), int(acc),
+                    int(zero_index is not None), int(w <= GATHER_EVICT_FIRST_MAX_W),
+                    _flag(_INDEX_ERR, src.device).data_ptr(), _stream(src.device))
+        if _RECORD is not None:
+            _RECORD.append({"src": src, "idx": idx, "out": out, "rows": rows, "zero_index": zero_index})
         if check and take_index_errors(src.device):
-            raise IndexError(f"gather_xor: an index lies outside [0, {S})")
+            raise IndexError(f"gather_xor: an index lies outside [0, {hi}) or a row outside out")
     return res
 
 

@@ -10,6 +10,12 @@ gathers:
   replay's sel-row stage uses), for small batches;
 - sorted: symbols sorted by degree into power-of-two width classes, then
   placed in ISI order by one width-1 gather, for large batches.
+
+The plans keep those arrays as the JAX package builds them; the device runs
+each overflow class and each sorted class composed with its placement
+(`ops/replay.placed`): one K1 launch that XORs straight into the class's
+output rows.  Index L, the sentinel, reads as K1's implicit zero row, so C
+is gathered from as it is, with no zero row appended.
 """
 
 from dataclasses import dataclass
@@ -19,7 +25,7 @@ import torch
 
 from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.ops.kernels import gather_xor
-from nanorq_tpu_torch.ops.replay import _apply_plan, _idx, take_rows
+from nanorq_tpu_torch.ops.replay import _idx, apply_plan, placed
 from nanorq_tpu_torch.precode.device_schedule import _gather_plan_flat
 from nanorq_tpu_torch.rfc.params import Params
 from nanorq_tpu_torch.rfc.tuples import lt_indices
@@ -39,11 +45,15 @@ class LTPlan:
     """Neighbour-gather plan for a fixed batch of ISIs, on one device.
 
     Exactly one layout is set: `passes`/`overflow` (flat) or `classes`/`sel`
-    (sorted).  Index tensors are int32; `sel` is [n_pad, 1]."""
+    (sorted), the JAX package's arrays.  `placed` holds what the device
+    runs: each overflow class or sorted class composed with its placement,
+    (idx [m, w], output rows [m]).  Index tensors are int32; `sel` is
+    [n_pad, 1]."""
 
     n: int  # number of symbols
     n_pad: int  # padded output rows
     L: int  # C rows; index L = zero sentinel
+    placed: list  # (idx [m, w], rows [m]) per class
     passes: list | None = None  # [n_pad, w] per pass
     overflow: list | None = None  # (idx [nb, w], sel [n_pad, 1]) per class
     classes: list | None = None  # idx [m_i, w_i] per width class
@@ -105,9 +115,7 @@ def lt_plan(isis: np.ndarray, P: Params, device, mode: str = "auto") -> LTPlan:
     n_pad = _pad_rows(n)
     idx, valid = lt_indices(isis, P)
     if mode == "sorted":
-        classes, sel = _sorted_layout(idx, valid, n, n_pad, P.L)
-        plan = LTPlan(n=n, n_pad=n_pad, L=P.L, classes=[_idx(c, dev) for c in classes],
-                      sel=_idx(sel.reshape(-1, 1), dev))
+        plan = _sorted_plan(n, n_pad, P.L, *_sorted_layout(idx, valid, n, n_pad, P.L), dev)
     else:
         erows, ecols = np.nonzero(valid)
         gp = _gather_plan_flat(n_pad, erows.astype(np.int64), idx[erows, ecols].astype(np.int64),
@@ -120,7 +128,17 @@ def lt_plan(isis: np.ndarray, P: Params, device, mode: str = "auto") -> LTPlan:
 def _flat_plan(n, n_pad, L, passes, overflow, dev) -> LTPlan:
     return LTPlan(n=n, n_pad=n_pad, L=L, passes=[_idx(p, dev) for p in passes],
                   overflow=[(_idx(ix, dev), _idx(np.asarray(s).reshape(-1, 1), dev))
-                            for ix, s in overflow])
+                            for ix, s in overflow],
+                  placed=[placed(ix, s, dev) for ix, s in overflow])
+
+
+def _sorted_plan(n, n_pad, L, classes, sel, dev) -> LTPlan:
+    """Class i holds the rows [lo_i, lo_i + m_i) of concat(classes) that sel
+    places."""
+    los = np.cumsum([0] + [c.shape[0] for c in classes])
+    return LTPlan(n=n, n_pad=n_pad, L=L, classes=[_idx(c, dev) for c in classes],
+                  sel=_idx(np.asarray(sel).reshape(-1, 1), dev),
+                  placed=[placed(c, sel, dev, int(lo)) for c, lo in zip(classes, los)])
 
 
 def lt_plan_from_jax(plan_np, device) -> LTPlan:
@@ -129,25 +147,18 @@ def lt_plan_from_jax(plan_np, device) -> LTPlan:
     sorted plan, `plan` = (passes, overflow) for a flat one."""
     dev = resolve(device)
     if plan_np.classes is not None:
-        return LTPlan(n=plan_np.n, n_pad=plan_np.n_pad, L=plan_np.L,
-                      classes=[_idx(c, dev) for c in plan_np.classes],
-                      sel=_idx(np.asarray(plan_np.sel).reshape(-1, 1), dev))
+        return _sorted_plan(plan_np.n, plan_np.n_pad, plan_np.L, [np.asarray(c) for c in plan_np.classes],
+                            np.asarray(plan_np.sel), dev)
     passes, overflow = plan_np.plan
     return _flat_plan(plan_np.n, plan_np.n_pad, plan_np.L, passes, overflow, dev)
 
 
 def lt_combine(C: torch.Tensor, plan: LTPlan) -> torch.Tensor:
     """C [L, t] -> symbols [n_pad, t] for the plan's ISIs (row order = isis)."""
-    t = C.shape[1]
-    C_ext = torch.cat([C, C.new_zeros(1, t)], dim=0)  # index L: the zero sentinel
-    if plan.classes is None:
-        base = C.new_zeros(plan.n_pad, t)
-        return _apply_plan(C_ext, plan.passes, plan.overflow, base)
-    # each class XORs straight into its rows of red; the last row stays zero
-    # (the placement sentinel)
-    red = C.new_zeros(sum(c.shape[0] for c in plan.classes) + 1, t)
-    pos = 0
-    for ix in plan.classes:
-        gather_xor(C_ext, ix, out=red[pos : pos + ix.shape[0]])
-        pos += ix.shape[0]
-    return take_rows(red, plan.sel)
+    L = plan.L
+    if plan.passes:  # the first pass covers every row: it stores, the rest XOR in
+        out = gather_xor(C, plan.passes[0], zero_index=L)
+        passes = plan.passes[1:]
+    else:  # rows no class places (degree 0, padding) stay zero
+        out, passes = C.new_zeros(plan.n_pad, C.shape[1]), []
+    return apply_plan(C, passes, plan.placed, out, zero_index=L)

@@ -14,13 +14,22 @@ Wut are K2 (`gf2_matmul`, on the packed bits as stored) and HDPC and Vinv are
 K3 (`gf256_matmul`, on the raw byte matrices).  PyTorch runs eagerly, so the
 TPU program's `lax.scan` over chunks is a Python loop, and the replay updates
 buffers it owns in place where JAX had to copy.
+
+The TPU program is scatter-free (a dynamic row scatter costs ~30x there):
+each overflow class of a GatherPlan, and the HDPC products, are gathered
+into a fresh buffer, a zero row is appended, and a width-1 gather over every
+output row places them.  K1 names its output rows instead (`rows`), so the
+port composes each class with its placement once, when the arrays are built
+(`placed`), and runs one launch per class that touches only its rows.  The
+gathers into t1 read its sentinel index Lpad as an implicit zero row
+(`zero_index`).
 """
 
 import numpy as np
 import torch
 
 from nanorq_tpu_torch.device import resolve
-from nanorq_tpu_torch.ops.kernels import gather_xor, gf2_matmul, gf256_matmul
+from nanorq_tpu_torch.ops.kernels import check_rows, gather_xor, gf2_matmul, gf256_matmul
 from nanorq_tpu_torch.precode.device_schedule import DeviceSchedule
 
 
@@ -46,6 +55,24 @@ def _extent(a: np.ndarray, axis: int) -> int:
     return int(nz[-1]) + 1 if nz.size else 0
 
 
+def place(idx: np.ndarray, rows: np.ndarray, n_out: int, dev: torch.device) -> tuple:
+    """(idx [m, w], rows [m]) as int32 tensors on `dev`: a gather whose row i
+    is XORed into output row rows[i] (`gather_xor`'s `rows`).  The rows are
+    checked here, once: distinct and in [0, n_out)."""
+    check_rows(rows, n_out)
+    return _idx(idx, dev), _idx(rows, dev)
+
+
+def placed(ix: np.ndarray, sel: np.ndarray, dev: torch.device, lo: int = 0) -> tuple:
+    """A gather ix [nb, w] and its width-1 placement sel [n_out] composed
+    into one gather with output rows: output row r receives row sel[r] - lo
+    of the gather when that lies in [0, nb), else nothing (sel's sentinel,
+    or another class's row).  So (ix[sel[r] - lo], r) over those r."""
+    ix, sel = np.asarray(ix), np.asarray(sel, np.int64)
+    r = np.nonzero((sel >= lo) & (sel < lo + ix.shape[0]))[0]
+    return place(ix[sel[r] - lo], r, sel.size, dev)
+
+
 def device_arrays(ds: DeviceSchedule, device) -> dict:
     """A DeviceSchedule's tensors on `device`, cached on the schedule.
 
@@ -54,8 +81,9 @@ def device_arrays(ds: DeviceSchedule, device) -> dict:
     `mhd` padded to H_pad rows and Lpad columns holds H rows and ~L columns,
     Wut's [Lpad, u_pad] bits ~L rows and u columns, so the kernels skip the
     zero padding (rows of `mhd` past its extent give zero products, which
-    stay in the zeroed product buffer; columns of `mhd` and `wut` past it
-    select nothing).
+    no zsel row needs to receive; columns of `mhd` and `wut` past it select
+    nothing).  The bsel overflow classes and the HDPC placement `hd_sel`
+    are kept composed with their placements (`placed`) only.
     """
     dev = resolve(device)
     cache = ds.__dict__.setdefault("_torch_arrays", {})
@@ -77,16 +105,16 @@ def device_arrays(ds: DeviceSchedule, device) -> dict:
         ],
         "sel_rows": _col(ds.sel_rows, dev),
         "bsel_passes": [_idx(p, dev) for p in ds.bsel.passes],
-        "bsel_overflow": [(_idx(ix, dev), _col(sel, dev)) for ix, sel in ds.bsel.overflow],
-        "hd_sel": None if ds.mhd is None else _col(ds.hd_sel, dev),
+        "bsel_placed": [placed(ix, sel, dev) for ix, sel in ds.bsel.overflow],
         "vinv": _u8(ds.vinv, dev),  # [u_pad, u_pad] bytes
         "out_sel": _col(ds.out_sel, dev),
     }
     if ds.mhd is not None:  # [H_pad, Lpad] bytes -> its extent, columns to a multiple of 16
         hr = _extent(ds.mhd, 0)
         hc = min(-(-_extent(ds.mhd, 1) // 16) * 16, ds.mhd.shape[1])
-        arr["H_pad"] = ds.mhd.shape[0]
         arr["mhd"] = _u8(ds.mhd[:hr, :hc], dev)
+        # zsel row r receives product row hd_sel[r] when it is below the extent
+        arr["hd_placed"] = placed(np.arange(hr, dtype=np.int32)[:, None], ds.hd_sel, dev)
     # [Lpad, u_pad/8] packed bits -> rows of its extent, k = 8 * its bytes
     arr["wut"] = _u8(ds.wut[: _extent(ds.wut, 0)], dev)
     arr["wut_k"] = 8 * _extent(ds.wut, 1)
@@ -99,62 +127,54 @@ def take_rows(src: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return gather_xor(src, rows)
 
 
-def _with_zero_row(x: torch.Tensor) -> torch.Tensor:
-    return torch.cat([x, x.new_zeros(1, x.shape[1])], dim=0)
-
-
-def _select_rows(red: torch.Tensor, sel: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """out ^= red_ext[sel], red_ext = red plus a zero row (sentinel len(red))."""
-    return gather_xor(_with_zero_row(red), sel, out=out)
-
-
-def _apply_plan(src_ext: torch.Tensor, passes, overflow, base: torch.Tensor) -> torch.Tensor:
-    """base ^= the GatherPlan applied to src_ext (last row zero), in place."""
+def apply_plan(src: torch.Tensor, passes, placed_classes, base: torch.Tensor,
+               zero_index: int | None = None) -> torch.Tensor:
+    """base ^= a GatherPlan applied to src, in place: its row-aligned passes,
+    then its overflow classes composed with their placements (`placed`)."""
     for p in passes:
-        gather_xor(src_ext, p, out=base)
-    for ix, sel in overflow:
-        _select_rows(gather_xor(src_ext, ix), sel, base)
+        gather_xor(src, p, out=base, zero_index=zero_index)
+    for ix, rows in placed_classes:
+        gather_xor(src, ix, out=base, rows=rows, zero_index=zero_index)
     return base
 
 
-def _trisolve(arr: dict, y: torch.Tensor, z: torch.Tensor) -> None:
-    """z[:Lpad] = T^-1 y, chunk by chunk; z[Lpad] is the zero sentinel row.
+def _trisolve(arr: dict, y: torch.Tensor, t1: torch.Tensor) -> None:
+    """t1 = T^-1 y, chunk by chunk, into the zeroed t1 [Lpad, t]; the
+    sentinel index Lpad reads as a zero row.
 
-    Chunk q XORs its dependency ranges, gathered from the rows of z solved
+    Chunk q XORs its dependency ranges, gathered from the rows of t1 solved
     so far, into y's rows of that chunk (y is the replay's own scratch), then
-    multiplies by the chunk inverse straight into z's zero rows."""
-    CB = arr["CB"]
+    multiplies by the chunk inverse straight into t1's zero rows."""
+    CB, Lpad = arr["CB"], arr["Lpad"]
     for seg in arr["tri"]:
         for qi in range(seg["tinv"].shape[0]):
             q = seg["q0"] + qi
             yq = y[q * CB : (q + 1) * CB]
             for a, b, ix in seg["ranges"]:
-                gather_xor(z, ix[qi], out=yq[a:b])
-            gf2_matmul(seg["tinv"][qi], yq, out=z[q * CB : (q + 1) * CB])
+                gather_xor(t1, ix[qi], out=yq[a:b], zero_index=Lpad)
+            gf2_matmul(seg["tinv"][qi], yq, out=t1[q * CB : (q + 1) * CB])
 
 
 def replay(arr: dict, D: torch.Tensor) -> torch.Tensor:
     """Structured replay: D [M_pad, t] uint8 (row M_pad-1 zero) -> C [L, t]."""
     Lpad, u_pad = arr["Lpad"], arr["u_pad"]
     t = D.shape[1]
-    # z holds t1 (rows < Lpad), then x_u (rows Lpad..Lpad+u_pad-1); row Lpad
-    # stays zero -- the sentinel of every gather into t1 -- until stage 3
-    # writes x_u over it, so stage 5 gathers from one buffer with no concat
+    # z holds t1 (rows < Lpad), then x_u (rows Lpad..Lpad+u_pad-1), so
+    # stage 5 gathers from one buffer with no concat; the gathers into t1
+    # read their sentinel Lpad as K1's implicit zero row
     z = torch.zeros((Lpad + u_pad, t), dtype=torch.uint8, device=D.device)
-
-    y = take_rows(D, arr["piv_rows"])  # [Lpad, t]
-    _trisolve(arr, y, z)  # stage 1
-    del y
     t1 = z[:Lpad]
 
+    y = take_rows(D, arr["piv_rows"])  # [Lpad, t]
+    _trisolve(arr, y, t1)  # stage 1
+    del y
+
     # stage 2: zsel = y_sel ^ B_sel t1 (+ HDPC dense part)
-    zsel = _apply_plan(z, arr["bsel_passes"], arr["bsel_overflow"], take_rows(D, arr["sel_rows"]))
-    if "mhd" in arr:  # HDPC products in rows [:H] of a zeroed [H_pad + 1] buffer (last: sentinel)
-        hd = arr["mhd"]
-        red = z.new_zeros(arr["H_pad"] + 1, t)
-        if hd.numel():
-            gf256_matmul(hd, t1[: hd.shape[1]], out=red[: hd.shape[0]])
-        gather_xor(red, arr["hd_sel"], out=zsel)
+    zsel = apply_plan(t1, arr["bsel_passes"], arr["bsel_placed"], take_rows(D, arr["sel_rows"]), Lpad)
+    hd = arr.get("mhd")
+    if hd is not None and hd.numel():  # HDPC products, XORed into the zsel rows that take one
+        ix, rows = arr["hd_placed"]
+        gather_xor(gf256_matmul(hd, t1[: hd.shape[1]]), ix, out=zsel, rows=rows)
 
     xu = z[Lpad : Lpad + u_pad]
     gf256_matmul(arr["vinv"], zsel, out=xu)  # stage 3 (xu rows are zero)

@@ -106,3 +106,18 @@ def test_host_arm_decodes_one_block_as_jax(K):
         assert dec.repair_all(io, backend="host")
         outs.append(out)
     assert np.array_equal(outs[0], outs[1]) and np.array_equal(outs[0], data)
+
+
+def test_native_build_temp_names_are_per_process(monkeypatch):
+    """Two processes building the native library at once (test workers on a
+    fresh checkout) write different temporary files, each installed by an
+    atomic rename."""
+    from nanorq_tpu_torch import native
+
+    lib = native._lib_path("/build")
+    names = []
+    for pid in (1111, 2222):
+        monkeypatch.setattr(native.os, "getpid", lambda p=pid: p)
+        names.append((native._tmp(lib), native._tmp(lib + ".srchash")))
+    assert names[0][0] != names[1][0] and names[0][1] != names[1][1]
+    assert all(n.startswith(lib) and n.endswith(".tmp") for pair in names for n in pair)
