@@ -8,10 +8,10 @@ Phases, each printing its own lines and its seconds:
 1. build: the CUDA kernels of nanorq_tpu_torch/csrc, compiled by nvcc;
 2. kernel parity: each kernel against its plain torch version on the same
    inputs, bit-exact, at the shapes the K=1000 main path gives it (t = 1280
-   and t = 200*1280) and at a ragged shape; kernel and plain times (the
-   three gather probes at K1's shapes, with K1's time beside theirs), each
-   gather's bytes bound and, at width 1, torch.index_select's time (the
-   library_ms of a kernel whose heaviest shape has width 1); K1 at every
+   and t = 200*1280) and at a ragged shape; the three gather probes at K1's
+   shapes, timed with their plain versions and with K1's time beside
+   theirs, each shape's bytes bound and, at width 1, torch.index_select's
+   time (gather_v2's library_ms); K1 at every
    gather of one warm encode (tools/gather_launches.py: the 17 launches of
    a replay and a repair LT combine at t = 200*1280, recorded as they run,
    in every mode -- out=, rows, zero_index -- each bit-exact, timed, with
@@ -123,11 +123,6 @@ def _gather_bytes(src: torch.Tensor, idx: torch.Tensor) -> int:
     return int(torch.unique(idx).numel()) * src.shape[1] + idx.shape[0] * src.shape[1] + idx.numel() * 4
 
 
-def rows_k1(rows: list, label: str) -> str:
-    """The K1 label a probe row of `label` was timed beside (its own for K1)."""
-    return next((k1 or lab) for lab, _, _, _, k1 in rows if lab == label)
-
-
 def phase_matmul(dev) -> dict:
     """K2 and K3 against the plain versions at the main path's shapes and at
     the edge shapes (tools/matmul_forms.py): one line each; the report
@@ -203,13 +198,13 @@ def phase_parity(dev, rng, P) -> dict:
     cases["gather_xor"].append(("ragged src[300,1283] idx(100,5)", False,
                                 lambda: kernels.gather_xor(src, ix), lambda: gfmat.xor_reduce_gather(src, ix), None))
     # ragged, with output rows and the implicit zero row: index 299 of src[:299]
-    rows = torch.from_numpy(rng.permutation(150)[:100].astype(np.int32)).to(dev)
-    kout, pout = (zero_last(u8(150, tr)) for _ in range(2))
-    pout.copy_(kout)
+    out_rows = torch.from_numpy(rng.permutation(150)[:100].astype(np.int32)).to(dev)
+    kout = zero_last(u8(150, tr))
+    pout = kout.clone()
     cases["gather_xor"].append((
         "ragged src[299,1283] idx(100,5) rows out[150] zero_index", False,
-        lambda: kernels.gather_xor(src[:299], ix, out=kout, rows=rows, zero_index=299),
-        lambda: gfmat.xor_reduce_gather(src[:299], ix, out=pout, rows=rows, zero_index=299), None))
+        lambda: kernels.gather_xor(src[:299], ix, out=kout, rows=out_rows, zero_index=299),
+        lambda: gfmat.xor_reduce_gather(src[:299], ix, out=pout, rows=out_rows, zero_index=299), None))
     for name, fn in (("gather_v1", lambda: kernels.gather_v1(src, ix)),
                      ("gather_v2", lambda: kernels.gather_v2(src, ix, kernels.probe_counts(ix, 299), 299)),
                      ("gather_db", lambda: kernels.gather_db(src, ix))):
@@ -230,11 +225,13 @@ def phase_parity(dev, rng, P) -> dict:
                 continue
             raise AssertionError(f"gather_xor took index {bad} of a 300-row source")
     _say("parity", kernel="gather_xor", out_of_range_index="IndexError")
+    # K1 is timed here only for the probe lines beside it (k1_ms); its own
+    # report comes from every launch of one encode (phase_k1_launches)
     report, k1_ms, lib_ms = {}, {}, {}
     for name, rows in cases.items():
         if not rows:  # K2 and K3: phase_matmul below
             continue
-        worst, main_ms, main_plain, main_shape = 0, 0.0, 0.0, ""
+        worst, main_ms, main_plain, main_shape, main_k1 = 0, 0.0, 0.0, "", None
         main_lib = None
         for label, main, kfn, pfn, k1 in rows:
             got, want = kfn(), pfn()
@@ -244,29 +241,28 @@ def phase_parity(dev, rng, P) -> dict:
             if err:
                 raise AssertionError(f"{name} {label}: kernel differs from plain, max_abs_err={err}")
             ms = _cuda_ms(kfn, 10 if main else 20)
-            pms = _cuda_ms(pfn, 3 if main else 10)
-            extra = {}
             if name == "gather_xor":
                 k1_ms[label] = ms
-            lib = k1 or label
-            if lib in library:  # a width-1 gather: index_select's function
-                if lib not in lib_ms:
-                    lib_ms[lib] = _cuda_ms(library[lib], 10 if main else 20)
-                extra["library_ms"] = f"{lib_ms[lib]:.4f}"
-            if k1 is not None:
-                extra["k1_ms"] = f"{k1_ms[k1]:.4f}"
-            bound = bounds.get(k1 or label)
-            if bound:
-                extra["bound_ms"] = f"{bound[0]:.4f}"
+                _say("parity", kernel=name, shape=label.replace(" ", ""), exact=True, ms=f"{ms:.4f}")
+                continue
+            pms = _cuda_ms(pfn, 3 if main else 10)
+            extra = {"k1_ms": f"{k1_ms[k1]:.4f}"}
+            if k1 in library:  # a width-1 gather: index_select's function
+                if k1 not in lib_ms:
+                    lib_ms[k1] = _cuda_ms(library[k1], 10 if main else 20)
+                extra["library_ms"] = f"{lib_ms[k1]:.4f}"
+            extra["bound_ms"] = f"{bounds[k1][0]:.4f}"
             _say("parity", kernel=name, shape=label.replace(" ", ""), exact=True,
                  ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", **extra)
             if main and ms >= main_ms:  # the heaviest main-path shape at t=200*T
-                main_ms, main_plain, main_shape = ms, pms, label
+                main_ms, main_plain, main_shape, main_k1 = ms, pms, label, k1
                 main_lib = float(extra["library_ms"]) if "library_ms" in extra else None
-        b_ms, b_by = bounds[rows_k1(rows, main_shape)]
+        if name == "gather_xor":
+            report[name] = {**phase_k1_launches(dev), "max_abs_err": worst}
+            continue
+        b_ms, b_by = bounds[main_k1]
         report[name] = {"max_abs_err": worst, "ms": main_ms, "plain_ms": main_plain, "shape": main_shape,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": main_lib}
-    report["gather_xor"] = phase_k1_launches(dev)
     report.update(phase_matmul(dev))
     if kernels.take_index_errors(dev) or kernels.take_count_errors(dev):
         raise AssertionError("a parity launch flagged an index or a count")
@@ -391,7 +387,7 @@ def phase_decode(enc, data, reps, dev, deliveries):
     tcache.clear_decoder_cache()
     out_cold, cold_s, preps = _decode_once(enc, data, reps, deliveries, dev, "device")
     before = dict(kernels.LAUNCHES)
-    with kernels.record_gathers() as rec:
+    with kernels.record_gathers(limit=1) as rec:  # holds no later batch's payload
         out_warm, warm_s, _ = _decode_once(enc, data, reps, deliveries, dev, "device")
     warm = {n: kernels.LAUNCHES[n] - before[n] for n in before}
     batches = -(-Z // Decoder._BATCH_FLUSH)
@@ -493,7 +489,7 @@ def phase_cli(rng) -> dict:
 
 def _short(name: str) -> str:
     """A profiler event's kernel name without its return type and arguments."""
-    name = name.split("(", 1)[0]
+    name = name.replace("(anonymous namespace)", "{anon}").split("(", 1)[0]
     return name[5:] if name.startswith("void ") else name
 
 

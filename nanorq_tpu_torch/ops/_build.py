@@ -63,7 +63,7 @@ def _digest(srcs: list[str]) -> str:
 
 def _bind(lib) -> None:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.nrq_gather_xor.argtypes = [vp, i64, i64, vp, i64, i64, vp, i64, vp, i32, i32, i32, vp, vp]
+    lib.nrq_gather_xor.argtypes = [vp, i64, i64, vp, i64, i64, vp, i64, vp, i32, i32, vp, vp]
     lib.nrq_gf2_matmul.argtypes = [i64, vp, i64, i64, i64, i64, vp, i64, i64, vp, i64, i32, vp]
     lib.nrq_gf256_m4r.argtypes = [i64, vp, i64, i64, i64, i64, vp, i64, i64, vp, i64, i32, vp]
     lib.nrq_gf256_logexp.argtypes = [i64, vp, i64, i64, i64, vp, i64, i64, vp, vp, vp, i64, i32, vp]

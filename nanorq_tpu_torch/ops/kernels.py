@@ -132,25 +132,23 @@ def check_rows(rows, n_out: int) -> None:
 
 
 _RECORD: list | None = None  # set inside record_gathers()
+_RECORD_MAX: int | None = None
 
 
 @contextlib.contextmanager
-def record_gathers():
+def record_gathers(limit: int | None = None):
     """Inside, every gather_xor launch on CUDA also appends its operands to
     the list yielded, as {"src", "idx", "out", "rows", "zero_index"} (out:
     None for a fresh result), so that a tool can time each launch of a path
-    again (`tools/gather_launches.py`)."""
-    global _RECORD
-    _RECORD = rec = []
+    again (`tools/gather_launches.py`).  With `limit`, only the first
+    `limit` launches: the list holds their tensors alive, and no later's."""
+    global _RECORD, _RECORD_MAX
+    rec = []
+    _RECORD, _RECORD_MAX = rec, limit
     try:
         yield rec
     finally:
         _RECORD = None
-
-
-# K1's loads and stores are marked streaming (evict-first) for gathers of
-# this width or less: their rows are read once (PERF.md, PR 4)
-GATHER_EVICT_FIRST_MAX_W = 1
 
 
 def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = None, *,
@@ -180,7 +178,6 @@ def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = 
         _need(out is not None, "rows: names rows of out, and no out was given")
         _need(rows.dtype == torch.int32 and tuple(rows.shape) == (n,) and rows.is_contiguous(),
               f"rows: expected a contiguous int32 [{n}], got {rows.dtype} {tuple(rows.shape)}")
-        _need(out.dim() == 2, "out: expected a 2-D tensor")
         inputs += (rows,)
     out = _out(out, (n if rows is None else out.shape[0], t), *inputs)
     hi = S if zero_index is None else S + 1
@@ -197,9 +194,9 @@ def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = 
         with torch.cuda.device(src.device):
             _launch("gather_xor", lib.nrq_gather_xor, src.data_ptr(), S, t, idx.data_ptr(), n, w,
                     None if rows is None else rows.data_ptr(), res.shape[0], res.data_ptr(), int(acc),
-                    int(zero_index is not None), int(w <= GATHER_EVICT_FIRST_MAX_W),
-                    _flag(_INDEX_ERR, src.device).data_ptr(), _stream(src.device))
-        if _RECORD is not None:
+                    int(zero_index is not None), _flag(_INDEX_ERR, src.device).data_ptr(),
+                    _stream(src.device))
+        if _RECORD is not None and (_RECORD_MAX is None or len(_RECORD) < _RECORD_MAX):
             _RECORD.append({"src": src, "idx": idx, "out": out, "rows": rows, "zero_index": zero_index})
         if check and take_index_errors(src.device):
             raise IndexError(f"gather_xor: an index lies outside [0, {hi}) or a row outside out")

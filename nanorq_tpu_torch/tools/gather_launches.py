@@ -9,10 +9,9 @@ a seeded random D at t = Z*T (Z = 200 blocks of T = 1280), warm (a first
 replay builds the schedule's tensors).  Then, for each launch, on its own
 operands: the kernel bit-exact against the plain version (`gfmat`), fresh and
 XORed into its out= (at its `rows`); `ms`, its mean over `--iters` launches
-in one CUDA graph (the rule's streaming setting) and `ms_other` with the
-other setting; `plain_ms` (CUDA events); and, for a width-1 gather into a
-fresh tensor, one `torch.index_select` of the same rows (`library_ms`, in a
-CUDA graph).  One JSON line per launch, then one line of sums.  Needs a CUDA
+in one CUDA graph; `plain_ms` (CUDA events); and, for a width-1 gather into
+a fresh tensor, one `torch.index_select` of the same rows (`library_ms`, in
+a CUDA graph).  One JSON line per launch, then one line of sums.  Needs a CUDA
 device.
 
 Bounds, at the H100 SXM data sheet's 3.35 TB/s (`bounds`): `bound_ms`, the
@@ -107,14 +106,7 @@ def measure(r: dict, iters: int) -> dict:
     n, w = idx.shape
     line = {"shape": label(r), "S": src.shape[0], "t": src.shape[1], "n": n, "w": w}
     kfn, pfn = _calls(r)
-    rule = kernels.GATHER_EVICT_FIRST_MAX_W
-    line["evict_first"] = w <= rule
     line["ms"] = graph_ms(kfn, iters)
-    kernels.GATHER_EVICT_FIRST_MAX_W = -1 if w <= rule else w  # the other setting
-    try:
-        line["ms_other"] = graph_ms(kfn, iters)
-    finally:
-        kernels.GATHER_EVICT_FIRST_MAX_W = rule
     line["plain_ms"] = events_ms(pfn, 2 if src.shape[1] > T else 5)
     line["library_ms"] = None
     if w == 1 and r["out"] is None:
@@ -127,7 +119,7 @@ def measure(r: dict, iters: int) -> dict:
 
 
 def totals(lines: list) -> dict:
-    return {"launches": len(lines), **{k: sum(x[k] for x in lines) for k in ("ms", "ms_other", "bound_ms")}}
+    return {"launches": len(lines), **{k: sum(x[k] for x in lines) for k in ("ms", "bound_ms")}}
 
 
 def main(argv=None) -> list:
