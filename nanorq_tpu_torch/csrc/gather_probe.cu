@@ -177,62 +177,386 @@ __device__ __forceinline__ void reduce_rows(const uint8_t* stage, const int32_t*
 
 __host__ __device__ __forceinline__ int64_t align8(int64_t x) { return (x + 7) / 8 * 8; }
 
-// v1 (MODE 0, 1, 2) and v2 (V2): one row block x one t-tile per block.
+// --- v1 and v2: a persistent ring of stages --------------------------------
+
+constexpr int CONSUMER_WARPS = 8;
+constexpr int BULK_PRODUCER_WARPS = 1;   // modes 0 and 2, v2: one lane issues one bulk copy
+// mode 1: a cp.async moves 16 bytes, so a 32 KB stage is 2048 instructions;
+// four warps issue them at 16 a thread, and leave the consumers their issue slots
+constexpr int ASYNC_PRODUCER_WARPS = 4;
+constexpr int ASYNC_PRODUCER_THREADS = ASYNC_PRODUCER_WARPS * 32;
+constexpr int64_t SMEM_MAX = 232448;  // 227 KB: what one block may have
+
+__host__ __device__ constexpr int producer_warps(int mode) {
+  return mode == 1 ? ASYNC_PRODUCER_WARPS : BULK_PRODUCER_WARPS;
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(saddr(bar)) : "memory");
+}
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+// Like bulk_copy, with an L2 eviction policy for the lines it reads.
+__device__ __forceinline__ void bulk_copy_hint(void* dst, const void* src, uint32_t bytes,
+                                               uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;" ::"r"(saddr(dst)),
+      "l"(src), "r"(bytes), "r"(saddr(bar)), "l"(policy)
+      : "memory");
+}
+// Shared -> global, tracked by the executing thread's bulk groups.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(saddr(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_store_hint(void* dst, const void* src, uint32_t bytes,
+                                                uint64_t policy) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;" ::"l"(dst),
+               "r"(saddr(src)), "r"(bytes), "l"(policy)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Until all but the executing thread's newest N bulk groups have read their source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// One index as a slot's class: the row to copy, SKIP or BAD.
+__device__ __forceinline__ int32_t classify(int32_t r, int64_t S, int32_t sentinel, int* err) {
+  if (sentinel >= 0 && r == sentinel) return SKIP;
+  if (r < 0 || r >= S) {
+    *err = 1;  // every writer stores the same value, so the race is benign
+    return BAD;
+  }
+  return r;
+}
+
+// What a launch of the ring is cut into (ring_plan below states the rule).
+struct Ring {
+  int64_t n, t, row_blocks, chunks, tiles;
+  int w, R;
+  int rs;   // rows of one step (one stage of the ring)
+  int cw;   // bytes of one copy: the t-tile's width
+  int sps;  // slots of one step: rs * w
+  int ns;   // stages
+  int strip_bytes, out_bulk, hint, contig;
+};
+
+// The steps of this block in order, for the producer and the consumers
+// alike: tiles blockIdx.x, blockIdx.x + gridDim.x, ... (or, with g.contig, a
+// run of consecutive tiles); a tile (a row block of R rows x a t-tile of cw
+// bytes) in steps of rs rows.  next() moves to the first or the next step.
+struct Step {
+  int s = -1;                // the step's stage ...
+  uint32_t ph = 0;           // ... and the parity of this use of it
+  int64_t rb = 0, row0 = 0, col0 = 0;  // row block; first row and byte of the step
+  int nrow = 0, cb = 0;      // rows and bytes of the step
+  bool last = false;         // the last step of its tile
+};
+
+struct Steps : Step {
+  const Ring& g;
+  int64_t tile, end, stride;
+  int64_t dim, a, b, step_q, step_r;  // tile = b * dim + a, and the stride likewise
+  int rows = 0, r0 = 0;               // of the tile: its rows, the step's first
+
+  __device__ explicit Steps(const Ring& g_) : g(g_) {
+    int64_t first;
+    if (g.contig) {
+      const int64_t per = (g.tiles + gridDim.x - 1) / gridDim.x;
+      stride = 1;
+      first = blockIdx.x * per;
+      end = first + per < g.tiles ? first + per : g.tiles;
+    } else {
+      stride = gridDim.x;
+      first = blockIdx.x;
+      end = g.tiles;
+    }
+    dim = g.w == 1 ? g.chunks : g.row_blocks;  // the coordinate that runs first
+    step_q = stride / dim, step_r = stride % dim;
+    tile = first - stride;  // one tile before the first, and its coordinates
+    a = first % dim - step_r, b = first / dim - step_q;
+    if (a < 0) a += dim, --b;
+  }
+  __device__ bool next() {
+    r0 += g.rs;
+    if (r0 >= rows) {
+      tile += stride;
+      if (tile >= end) return false;
+      a += step_r, b += step_q;
+      if (a >= dim) a -= dim, ++b;
+      rb = g.w == 1 ? b : a;
+      const int64_t cc = g.w == 1 ? a : b;
+      rows = static_cast<int>(g.n - rb * g.R < g.R ? g.n - rb * g.R : g.R);
+      col0 = cc * g.cw;
+      cb = static_cast<int>(g.t - col0 < g.cw ? g.t - col0 : g.cw);
+      r0 = 0;
+    }
+    row0 = rb * g.R + r0;
+    nrow = rows - r0 < g.rs ? rows - r0 : g.rs;
+    last = r0 + nrow >= rows;
+    if (++s == g.ns) {
+      s = 0;
+      ph ^= 1;
+    }
+    return true;
+  }
+};
+
+// One warp: dst[0, cb) = XOR over the row's w slots (slot k at slots + k*cw)
+// of those whose class is a row.  Lane l holds the class of slot k0 + l and
+// the warp shares it by shuffles; each lane keeps U 16-byte lanes, 512 bytes
+// apart, so a warp's loads and stores are 512-byte runs.
+__device__ __forceinline__ void reduce_row(const uint8_t* slots, const int32_t* cls, int w, int cw,
+                                           int cb, uint8_t* dst, int lane) {
+  constexpr int U = 4;
+  for (int base = 0; base < cb; base += 512 * U) {
+    const int c0 = base + lane * 16;
+    uint4 acc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[u] = vzero<uint4>();
+    for (int k0 = 0; k0 < w; k0 += 32) {
+      const int32_t mine = k0 + lane < w ? cls[k0 + lane] : SKIP;
+      const int m = w - k0 < 32 ? w - k0 : 32;
+      for (int k = 0; k < m; ++k) {
+        if (__shfl_sync(0xffffffffu, mine, k) < 0) continue;  // the whole warp
+        const uint8_t* p = slots + static_cast<int64_t>(k0 + k) * cw + c0;
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (c0 + u * 512 < cb) acc[u] = vxor(acc[u], *reinterpret_cast<const uint4*>(p + u * 512));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (c0 + u * 512 < cb) *reinterpret_cast<uint4*>(dst + c0 + u * 512) = acc[u];
+  }
+}
+
+// v1 (MODE 0, 1, 2) and v2 (V2): see the header.
 template <int MODE, bool V2>
-__global__ void __launch_bounds__(THREADS)
-    gather_stage_kernel(const uint8_t* __restrict__ src, int64_t S, int64_t t,
-                        const int32_t* __restrict__ idx, int64_t n, int w, int R, int tw,
+__global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
+    gather_stage_kernel(const uint8_t* __restrict__ src, int64_t S,
+                        const int32_t* __restrict__ idx, const Ring g,
                         const int32_t* __restrict__ cnt, int32_t sentinel,
                         uint8_t* __restrict__ out, int* err, int* cnt_err) {
   extern __shared__ __align__(128) uint8_t smem[];
-  const int slots = R * w;
-  uint8_t* stage = smem;
-  int32_t* sidx = reinterpret_cast<int32_t*>(smem + static_cast<int64_t>(slots) * tw);
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(smem + align8(static_cast<int64_t>(slots) * tw + 4 * slots));
+  const int64_t stage_bytes = static_cast<int64_t>(g.sps) * g.cw;
+  uint8_t* stages = smem;
+  uint8_t* strip = smem + g.ns * stage_bytes;  // w == 1: zeros; else the output strips
+  uint64_t* full = reinterpret_cast<uint64_t*>(strip + g.strip_bytes);
+  uint64_t* empty = full + g.ns;
+  uint64_t* slotbar = empty + g.ns;  // MODE 0: one per slot of every stage
+  int32_t* sidx = reinterpret_cast<int32_t*>(slotbar + (MODE == 0 ? g.ns * g.sps : 0));
 
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * R;
-  const int rows = static_cast<int>(n - row0 < R ? n - row0 : R);
-  const int64_t col0 = static_cast<int64_t>(blockIdx.y) * tw;
-  const int tb = static_cast<int>(t - col0 < tw ? t - col0 : tw);
-  const int nslots = rows * w;
-
-  load_indices(sidx, idx, row0, w, nslots, S, V2 ? sentinel : -1, err);
-  const int nbar = MODE == 0 ? nslots : 1;
-  for (int b = threadIdx.x; b < nbar; b += blockDim.x)
-    bar_init(&bars[b], MODE == 1 ? blockDim.x : 1);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool copy_only = g.w == 1;  // a width-1 gather is a copy: no register pass
+  const int64_t t = g.t;
+  const int nbar = 2 * g.ns + (MODE == 0 ? g.ns * g.sps : 0);
+  for (int b = tid; b < nbar; b += blockDim.x) {
+    uint32_t count = 1;  // full: the producer's arrival; a slot's: its lane's
+    if (b < g.ns && MODE == 1) count = ASYNC_PRODUCER_THREADS + 1;
+    if (b >= g.ns && b < 2 * g.ns) count = copy_only ? 1 : CONSUMER_WARPS;  // empty
+    bar_init(&full[b], count);
+  }
+  if (copy_only) {
+    for (int i = tid * 16; i < g.strip_bytes; i += blockDim.x * 16)
+      *reinterpret_cast<uint4*>(strip + i) = vzero<uint4>();
+    fence_async_smem();  // bulk stores read the zeros
+  }
   bar_init_fence();
   __syncthreads();
+  const uint64_t policy = g.hint ? evict_first_policy() : 0;
 
-  if (MODE == 0) {
-    if (threadIdx.x < 32) {
-      for (int e = threadIdx.x; e < nslots; e += 32) {
-        const int32_t r = sidx[e];
-        if (r >= 0) {
-          bar_expect(&bars[e], tb);
-          bulk_copy(stage + static_cast<int64_t>(e) * tw, src + r * t + col0, tb, &bars[e]);
+  if (warp >= CONSUMER_WARPS) {
+    // ---- producers: a step's indices, its expected bytes, its copies.  The
+    // indices of the step after are loaded (into registers, the first PF*32
+    // or 128 of them) before this step's stage is waited for, so that their
+    // way from device memory is not on the chain from one step to the next.
+    Steps ahead(g);
+    bool more = ahead.next();
+    if constexpr (MODE == 1) {
+      const int ptid = tid - CONSUMER_WARPS * 32, pw = ptid >> 5;
+      int32_t pre = 0;
+      if (more && ptid < ahead.nrow * g.w) pre = idx[ahead.row0 * g.w + ptid];
+      while (more) {
+        const Step st = ahead;
+        const int32_t now = pre;
+        more = ahead.next();
+        if (more && ptid < ahead.nrow * g.w) pre = idx[ahead.row0 * g.w + ptid];
+        const int s = st.s, cb = st.cb;
+        bar_wait(&empty[s], st.ph ^ 1);
+        const int nslots = st.nrow * g.w;
+        const int32_t* ix = idx + st.row0 * g.w;
+        int32_t* cls = sidx + s * g.sps;
+        uint8_t* stage = stages + s * stage_bytes;
+        for (int e = ptid; e < g.sps; e += ASYNC_PRODUCER_THREADS)
+          cls[e] = e < nslots ? classify(e == ptid ? now : ix[e], S, -1, err) : SKIP;
+        asm volatile("bar.sync 1, %0;" ::"n"(ASYNC_PRODUCER_THREADS) : "memory");
+        if (ptid == 0) bar_arrive(&full[s]);  // publishes the classes
+        const int lanes = cb >> 4;
+        for (int e = pw; e < nslots; e += ASYNC_PRODUCER_WARPS) {
+          const int32_t r = cls[e];
+          if (r < 0) continue;
+          const uint8_t* p = src + r * t + st.col0;
+          uint8_t* d = stage + static_cast<int64_t>(e) * g.cw;
+          for (int c = lane; c < lanes; c += 32) copy16(d + c * 16, p + c * 16);
+        }
+        copies_arrive(&full[s]);
+      }
+      asm volatile("cp.async.wait_all;" ::: "memory");
+    } else {
+      constexpr int PF = 4;
+      int32_t pre[PF];
+      auto prefetch = [&]() {
+#pragma unroll
+        for (int j = 0; j < PF; ++j) {
+          const int e = j * 32 + lane;
+          pre[j] = (more && e < ahead.nrow * g.w) ? idx[ahead.row0 * g.w + e] : 0;
+        }
+      };
+      prefetch();
+      int counted = 0;  // v2: the non-sentinel slots of the tile so far
+      while (more) {
+        const Step st = ahead;
+        int32_t now[PF];
+#pragma unroll
+        for (int j = 0; j < PF; ++j) now[j] = pre[j];
+        more = ahead.next();
+        prefetch();
+        const int s = st.s, cb = st.cb;
+        const int64_t col0 = st.col0;
+        bar_wait(&empty[s], st.ph ^ 1);
+        const int nslots = st.nrow * g.w;
+        const int32_t* ix = idx + st.row0 * g.w;
+        int32_t* cls = sidx + s * g.sps;
+        uint8_t* stage = stages + s * stage_bytes;
+        uint64_t* sb = slotbar + s * g.sps;
+        int ncopy = 0;
+        // slot e of the step, its index `raw` (unread past the step's slots)
+        auto slot = [&](int e, int32_t raw) {
+          const int32_t r = e < nslots ? classify(raw, S, V2 ? sentinel : -1, err) : SKIP;
+          if (e < g.sps) cls[e] = r;
+          if constexpr (MODE == 0) {
+            if (e < g.sps) {  // every slot's barrier completes a phase in every step
+              if (r >= 0) {
+                bar_expect(&sb[e], cb);
+                uint8_t* d = stage + static_cast<int64_t>(e) * g.cw;
+                if (g.hint & 1) bulk_copy_hint(d, src + r * t + col0, cb, &sb[e], policy);
+                else bulk_copy(d, src + r * t + col0, cb, &sb[e]);
+              } else {
+                bar_arrive(&sb[e]);
+              }
+            }
+          } else {
+            ncopy += __popc(__ballot_sync(0xffffffffu, r >= 0));
+          }
+          if (V2) counted += __popc(__ballot_sync(0xffffffffu, r != SKIP));
+        };
+#pragma unroll
+        for (int j = 0; j < PF; ++j)
+          if (j * 32 < g.sps) slot(j * 32 + lane, now[j]);
+        for (int b = PF * 32; b < g.sps; b += 32) slot(b + lane, b + lane < nslots ? ix[b + lane] : 0);
+        if constexpr (MODE == 0) {
+          // full: every slot's barrier is armed for this use.  A consumer
+          // meets it before it waits for its own row's copies, so it is
+          // never a whole phase ahead of a barrier it did not wait for.
+          __syncwarp();
+          if (lane == 0) bar_arrive(&full[s]);
+        }
+        if constexpr (MODE == 2) {
+          __syncwarp();
+          if (lane == 0) bar_expect(&full[s], static_cast<uint32_t>(ncopy) * cb);
+          __syncwarp();
+          for (int e = lane; e < nslots; e += 32) {
+            const int32_t r = cls[e];
+            if (r < 0) continue;
+            uint8_t* d = stage + static_cast<int64_t>(e) * g.cw;
+            if (g.hint & 1) bulk_copy_hint(d, src + r * t + col0, cb, &full[s], policy);
+            else bulk_copy(d, src + r * t + col0, cb, &full[s]);
+          }
+        }
+        if (V2 && st.last) {
+          if (lane == 0 && counted != cnt[st.rb]) *cnt_err = 1;
+          counted = 0;
         }
       }
     }
-    for (int e = 0; e < nslots; ++e)
-      if (sidx[e] >= 0) bar_wait(&bars[e], 0);
-  } else if (MODE == 1) {
-    const int lanes = tb / 16;
-    for (int q = threadIdx.x; q < nslots * lanes; q += blockDim.x) {
-      const int e = q / lanes, c = q - e * lanes;
-      const int32_t r = sidx[e];
-      if (r >= 0) copy16(stage + static_cast<int64_t>(e) * tw + c * 16, src + r * t + col0 + c * 16);
+  } else if (copy_only) {
+    // ---- width 1: one warp stores each landed slot straight from its stage ----
+    if (warp != 0) return;
+    int prev = -1;
+    Steps st(g);
+    while (st.next()) {
+      const int s = st.s;
+      const int32_t* cls = sidx + s * g.sps;
+      const uint8_t* stage = stages + s * stage_bytes;
+      uint64_t* sb = slotbar + s * g.sps;
+      bar_wait(&full[s], st.ph);
+      for (int e = lane; e < st.nrow; e += 32) {
+        if (MODE == 0) bar_wait(&sb[e], st.ph);
+        const uint8_t* from = cls[e] >= 0 ? stage + static_cast<int64_t>(e) * g.cw : strip;
+        if (MODE == 1) fence_async_smem();  // cp.async wrote through the generic proxy
+        uint8_t* to = out + (st.row0 + e) * t + st.col0;
+        if (g.hint & 2) bulk_store_hint(to, from, st.cb, policy);
+        else bulk_store(to, from, st.cb);
+      }
+      bulk_commit();
+      if (prev >= 0) {  // the step before has been read out of its stage: release it
+        bulk_wait_read<1>();
+        __syncwarp();
+        if (lane == 0) bar_arrive(&empty[prev]);
+      }
+      prev = s;
     }
-    copies_arrive(&bars[0]);
-    bar_wait(&bars[0], 0);
+    bulk_wait_read<0>();
   } else {
-    if (threadIdx.x < 32) {
-      const int counted = issue_bulk(stage, sidx, nslots, src, t, col0, tb, tw, &bars[0]);
-      if (V2 && threadIdx.x == 0 && counted != cnt[blockIdx.x]) *cnt_err = 1;
+    // ---- consumers: a warp per row, the rows dealt round over the steps ----
+    int rot = 0, buf = 0;
+    uint8_t* mystrip = strip + static_cast<int64_t>(warp) * 2 * g.cw;
+    Steps st(g);
+    while (st.next()) {
+      const int s = st.s, cb = st.cb;
+      const int32_t* cls = sidx + s * g.sps;
+      const uint8_t* stage = stages + s * stage_bytes;
+      uint64_t* sb = slotbar + s * g.sps;
+      bar_wait(&full[s], st.ph);
+      for (int r = (warp - rot) & (CONSUMER_WARPS - 1); r < st.nrow; r += CONSUMER_WARPS) {
+        if (MODE == 0) {  // only this row's copies
+          for (int k = lane; k < g.w; k += 32) bar_wait(&sb[r * g.w + k], st.ph);
+          __syncwarp();
+        }
+        const uint8_t* slots = stage + static_cast<int64_t>(r) * g.w * g.cw;
+        uint8_t* orow = out + (st.row0 + r) * t + st.col0;
+        if (g.out_bulk) {
+          if (lane == 0) bulk_wait_read<1>();  // this strip's last store has been read
+          __syncwarp();
+          uint8_t* sbuf = mystrip + buf * g.cw;
+          reduce_row(slots, cls + r * g.w, g.w, g.cw, cb, sbuf, lane);
+          fence_async_smem();
+          __syncwarp();
+          if (lane == 0) {
+            bulk_store(orow, sbuf, cb);
+            bulk_commit();
+          }
+          buf ^= 1;
+        } else {
+          reduce_row(slots, cls + r * g.w, g.w, g.cw, cb, orow, lane);
+        }
+      }
+      rot = (rot + st.nrow) & (CONSUMER_WARPS - 1);
+      __syncwarp();
+      if (lane == 0) bar_arrive(&empty[s]);
     }
-    bar_wait(&bars[0], 0);
+    if (g.out_bulk && lane == 0) bulk_wait_read<0>();
   }
-  reduce_rows(stage, sidx, rows, w, tw, tb, out + row0 * t + col0, t);
 }
 
 // db: one t-tile per block; the block sweeps row blocks [q0, q1) through two
@@ -293,16 +617,78 @@ static int tile_width(int64_t t, int slots, int64_t budget) {
   return static_cast<int>(tw < t ? tw : t);
 }
 
+// Measuring hooks (0 = the rule's own value): nrq_gather_probe_tune sets them.
+static int tune_ns = 0, tune_stage_kb = 0, tune_bps = 0, tune_copy1 = 0, tune_copyw = 0;
+static int tune_out_bulk = 0, tune_hint = -1, tune_contig = 0;
+
+// The ring's rule.  A tile is the caller's R rows by cw bytes of t; the ring
+// takes it in steps of rs rows, one stage each:
+// - cw = STAGE / (R*w) bytes (16-byte units), so that a tile is one step;
+// - but where that copy falls below the least copy (COPY_1 at width 1,
+//   COPY_W wider), fewer rows per step rather than narrower copies:
+//   cw = the least copy, or STAGE / w where w rows of it do not fit;
+// - cw <= t; wider than 1, cw <= COPY_W_MAX (the output strips, one row each);
+// - rs = the rows of cw*w bytes that fit a stage, at most R.
+// Blocks: BLOCKS_PER_SM per SM, at most one per tile.
+constexpr int RING_NS = 3;
+constexpr int64_t RING_STAGE = 32 * 1024;
+constexpr int64_t RING_COPY_1 = 4096, RING_COPY_W = 2048, RING_COPY_W_MAX = 4096;
+constexpr int RING_BLOCKS_PER_SM = 2;
+
+struct RingLaunch {
+  Ring g;
+  int64_t blocks, smem;
+  int threads;
+};
+
+static RingLaunch ring_plan(int64_t t, int64_t n, int w, int R, int mode, int sms) {
+  const int64_t stage = tune_stage_kb ? tune_stage_kb * 1024 : RING_STAGE;
+  const int64_t least = w == 1 ? (tune_copy1 ? tune_copy1 : RING_COPY_1)
+                               : (tune_copyw ? tune_copyw : RING_COPY_W);
+  int64_t cw = stage / (static_cast<int64_t>(R) * w) / 16 * 16;
+  if (cw < least) {
+    cw = stage / w / 16 * 16;
+    if (cw > least) cw = least;
+  }
+  if (w > 1 && cw > RING_COPY_W_MAX) cw = RING_COPY_W_MAX;
+  if (cw > t) cw = t;
+  int64_t rs = stage / (w * cw);
+  if (rs > R) rs = R;
+  RingLaunch L;
+  Ring& g = L.g;
+  g.n = n;
+  g.t = t;
+  g.w = w;
+  g.R = R;
+  g.rs = static_cast<int>(rs);
+  g.cw = static_cast<int>(cw);
+  g.sps = g.rs * w;
+  g.ns = tune_ns ? tune_ns : RING_NS;
+  g.row_blocks = (n + R - 1) / R;
+  g.chunks = (t + cw - 1) / cw;
+  g.tiles = g.row_blocks * g.chunks;
+  g.out_bulk = w > 1 && tune_out_bulk;
+  g.hint = tune_hint >= 0 ? tune_hint : (w == 1 ? 3 : 0);  // bit 0: loads, bit 1: stores
+  g.contig = tune_contig;
+  g.strip_bytes = w == 1 ? g.cw : (g.out_bulk ? CONSUMER_WARPS * 2 * g.cw : 0);
+  const int64_t cap = static_cast<int64_t>(tune_bps ? tune_bps : RING_BLOCKS_PER_SM) * sms;
+  L.blocks = g.tiles < cap ? g.tiles : cap;
+  L.threads = (CONSUMER_WARPS + producer_warps(mode)) * 32;
+  const int64_t nbar = 2 * g.ns + (mode == 0 ? static_cast<int64_t>(g.ns) * g.sps : 0);
+  L.smem = static_cast<int64_t>(g.ns) * g.sps * g.cw + g.strip_bytes + 8 * nbar +
+           4 * static_cast<int64_t>(g.ns) * g.sps;
+  return L;
+}
+
 template <typename K>
-static cudaError_t launch(K kernel, dim3 grid, int64_t smem, cudaStream_t stream,
-                          const uint8_t* src, int64_t S, int64_t t, const int32_t* idx, int64_t n,
-                          int w, int R, int tw, const int32_t* cnt, int32_t sentinel, uint8_t* out,
-                          int* err, int* cnt_err) {
+static cudaError_t launch(K kernel, const RingLaunch& L, cudaStream_t stream, const uint8_t* src,
+                          int64_t S, const int32_t* idx, const int32_t* cnt, int32_t sentinel,
+                          uint8_t* out, int* err, int* cnt_err) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
+                                       static_cast<int>(L.smem));
   if (e != cudaSuccess) return e;
-  kernel<<<grid, THREADS, smem, stream>>>(src, S, t, idx, n, w, R, tw, cnt, sentinel, out, err,
-                                          cnt_err);
+  kernel<<<static_cast<unsigned>(L.blocks), L.threads, L.smem, stream>>>(src, S, idx, L.g, cnt,
+                                                                         sentinel, out, err, cnt_err);
   return cudaGetLastError();
 }
 
@@ -311,13 +697,13 @@ static cudaError_t launch_stage(int mode, bool v2, const void* src, int64_t S, i
                                 int32_t sentinel, void* out, void* err, void* cnt_err,
                                 void* stream) {
   if (!takes(src, t, idx, n, w, R, out) || mode < 0 || mode > 2) return cudaErrorInvalidValue;
-  const int slots = R * static_cast<int>(w);
-  const int tw = tile_width(t, slots, STAGE_BYTES);
-  const int64_t gx = (n + R - 1) / R, gy = (t + tw - 1) / tw;
-  if (gx > 0x7fffffff || gy > 65535) return cudaErrorInvalidConfiguration;
-  const int nbar = mode == 0 ? slots : 1;
-  const int64_t smem = align8(static_cast<int64_t>(slots) * tw + 4 * slots) + 8 * nbar;
-  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const RingLaunch L = ring_plan(t, n, static_cast<int>(w), R, mode, sms);
+  if (L.smem > SMEM_MAX || L.g.ns < 2 || L.g.tiles > 0x7fffffffffffLL)
+    return cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* sp = static_cast<const uint8_t*>(src);
   const auto* ip = static_cast<const int32_t*>(idx);
@@ -325,18 +711,12 @@ static cudaError_t launch_stage(int mode, bool v2, const void* src, int64_t S, i
   auto* op = static_cast<uint8_t*>(out);
   auto* ep = static_cast<int*>(err);
   auto* cep = static_cast<int*>(cnt_err);
-  const int wi = static_cast<int>(w);
-  if (v2)
-    return launch(gather_stage_kernel<2, true>, grid, smem, s, sp, S, t, ip, n, wi, R, tw, cp,
-                  sentinel, op, ep, cep);
+  if (v2) return launch(gather_stage_kernel<2, true>, L, s, sp, S, ip, cp, sentinel, op, ep, cep);
   if (mode == 0)
-    return launch(gather_stage_kernel<0, false>, grid, smem, s, sp, S, t, ip, n, wi, R, tw, cp,
-                  sentinel, op, ep, cep);
+    return launch(gather_stage_kernel<0, false>, L, s, sp, S, ip, cp, sentinel, op, ep, cep);
   if (mode == 1)
-    return launch(gather_stage_kernel<1, false>, grid, smem, s, sp, S, t, ip, n, wi, R, tw, cp,
-                  sentinel, op, ep, cep);
-  return launch(gather_stage_kernel<2, false>, grid, smem, s, sp, S, t, ip, n, wi, R, tw, cp,
-                sentinel, op, ep, cep);
+    return launch(gather_stage_kernel<1, false>, L, s, sp, S, ip, cp, sentinel, op, ep, cep);
+  return launch(gather_stage_kernel<2, false>, L, s, sp, S, ip, cp, sentinel, op, ep, cep);
 }
 
 }  // namespace probe
@@ -359,6 +739,25 @@ extern "C" int nrq_gather_v2(const void* src, int64_t S, int64_t t, const void* 
   if (!cnt || !cnt_err || sentinel < 0 || sentinel >= S) return cudaErrorInvalidValue;
   return nrq::probe::launch_stage(2, true, src, S, t, idx, n, w, R, cnt, sentinel, out, err,
                                   cnt_err, stream);
+}
+
+// The ring's plan for a launch on a card of `sms` SMs, as eight numbers: rows
+// per step, bytes per copy, stages, slots per step, tiles, blocks, threads,
+// shared-memory bytes (ops/kernels.probe_geometry states the same rule).
+extern "C" int nrq_gather_stage_plan(int64_t t, int64_t n, int64_t w, int R, int mode, int sms,
+                                     int64_t* plan) {
+  const auto L = nrq::probe::ring_plan(t, n, static_cast<int>(w), R, mode, sms);
+  const int64_t v[8] = {L.g.rs, L.g.cw, L.g.ns, L.g.sps, L.g.tiles, L.blocks, L.threads, L.smem};
+  for (int i = 0; i < 8; ++i) plan[i] = v[i];
+  return 0;
+}
+
+extern "C" int nrq_gather_probe_tune(int ns, int stage_kb, int bps, int copy1, int copyw,
+                                     int out_bulk, int hint, int contig) {
+  using namespace nrq::probe;
+  tune_ns = ns, tune_stage_kb = stage_kb, tune_bps = bps, tune_copy1 = copy1, tune_copyw = copyw;
+  tune_out_bulk = out_bulk, tune_hint = hint, tune_contig = contig;
+  return 0;
 }
 
 extern "C" int nrq_gather_db(const void* src, int64_t S, int64_t t, const void* idx, int64_t n,

@@ -330,6 +330,69 @@ _PROBE_MAX_R = 32
 _PROBE_MAX_SLOTS = 1024  # R * w: row tiles staged per block
 
 
+# The ring of gather_v1 and gather_v2 (csrc/gather_probe.cu, ring_plan): what
+# probe_geometry mirrors, and the card test holds against the library's own.
+_RING_STAGES = 3
+_RING_STAGE_BYTES = 32 * 1024
+_RING_COPY_1, _RING_COPY_W, _RING_COPY_W_MAX = 4096, 2048, 4096
+_RING_BLOCKS_PER_SM = 2
+_RING_CONSUMER_WARPS = 8
+_RING_PRODUCER_WARPS = {0: 1, 1: 4, 2: 1}  # by wait mode: cp.async (1) needs an instruction per 16 bytes
+PROBE_SMEM_MAX = 232448  # 227 KB: the shared memory one block may have on the H100
+
+
+def probe_geometry(n: int, w: int, t: int, R: int = PROBE_R, mode: int = 2, sms: int = 132) -> dict:
+    """How gather_v1 (wait `mode`) and gather_v2 (mode 2) cut a launch, on a
+    card of `sms` SMs.  A tile is R rows by `copy_bytes` of t; a thread
+    block walks tiles block, block + blocks, ... and takes each in steps of
+    `rows_per_step` rows, one ring stage and `slots_per_step` copies each.
+
+    copy_bytes = stage / (R*w) (in 16-byte units), so that a tile is one
+    step; where that falls below the least copy (4 KB at width 1, 2 KB
+    wider), the step takes fewer rows rather than narrower copies.  Tiles
+    are numbered row block first at width 1 (a block's tiles walk one row
+    block's column chunks) and column chunk first when wider (the resident
+    blocks share one column chunk of the source)."""
+    stage = _RING_STAGE_BYTES
+    least = _RING_COPY_1 if w == 1 else _RING_COPY_W
+    cw = stage // (R * w) // 16 * 16
+    if cw < least:
+        cw = min(least, stage // w // 16 * 16)
+    if w > 1:
+        cw = min(cw, _RING_COPY_W_MAX)
+    cw = min(cw, t)
+    rs = min(R, stage // (w * cw))
+    ns, sps = _RING_STAGES, rs * w
+    row_blocks, chunks = -(-n // R), -(-t // cw)
+    tiles = row_blocks * chunks
+    blocks = min(tiles, _RING_BLOCKS_PER_SM * sms)
+    nbar = 2 * ns + (ns * sps if mode == 0 else 0)
+    strip = cw if w == 1 else 0  # the zero strip of the width-1 body
+    return {"rows_per_step": rs, "copy_bytes": cw, "stages": ns, "slots_per_step": sps,
+            "stage_bytes": sps * cw, "row_blocks": row_blocks, "chunks": chunks, "tiles": tiles,
+            "blocks": blocks, "tiles_per_block": -(-tiles // blocks) if blocks else 0,
+            "threads": 32 * (_RING_CONSUMER_WARPS + _RING_PRODUCER_WARPS[mode]),
+            "smem_bytes": ns * sps * cw + strip + 8 * nbar + 4 * ns * sps,
+            "order": "row_block" if w == 1 else "column_chunk"}
+
+
+def probe_steps(n: int, w: int, t: int, R: int, geom: dict, block: int):
+    """The steps thread block `block` takes under `geom`, in order:
+    (stage, first row, rows, first byte, bytes) each."""
+    rs, cw = geom["rows_per_step"], geom["copy_bytes"]
+    step = 0
+    for tile in range(block, geom["tiles"], geom["blocks"]):
+        if geom["order"] == "row_block":
+            rb, cc = divmod(tile, geom["chunks"])
+        else:
+            cc, rb = divmod(tile, geom["row_blocks"])
+        rows = min(R, n - rb * R)
+        col0 = cc * cw
+        for r0 in range(0, rows, rs):
+            yield step % geom["stages"], rb * R + r0, min(rs, rows - r0), col0, min(cw, t - col0)
+            step += 1
+
+
 def probe_counts(idx: torch.Tensor, sentinel: int, R: int = PROBE_R) -> torch.Tensor:
     """gather_v2's host count: int32 [ceil(n/R)], the slots of each block of R
     rows whose index is not `sentinel` (the probe's cnt)."""

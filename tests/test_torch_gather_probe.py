@@ -173,32 +173,153 @@ def test_gf256_matmul_batched_equals_per_block():
         kernels.gf256_matmul(M, X[0])
 
 
+GEOMETRY_GRID = [(n, w, t, R)
+                 for n in (1, 7, 37, 566, 1280)
+                 for w in (1, 2, 5, 8, 16, 48, 129, 1024)
+                 for t in (16, 1280, 5008, 40960, 256000)
+                 for R in (1, 8, 16, 32) if R * w <= 1024 and n * t <= 1280 * 40960]
+
+
+@pytest.mark.parametrize("w", [1, 2, 5, 8, 16, 48, 129, 1024])
+def test_probe_geometry_covers_every_lane_once(w):
+    """The ring's launch geometry: over all blocks, the steps cover every
+    (row, 16-byte lane) of the output exactly once, a step fits its stage,
+    shared memory stays within a block's 227 KB, and every copy is a nonzero
+    multiple of 16 bytes."""
+    for n, w_, t, R in GEOMETRY_GRID:
+        if w_ != w:
+            continue
+        for mode in (0, 1, 2):
+            g = kernels.probe_geometry(n, w, t, R, mode)
+            assert g["smem_bytes"] <= kernels.PROBE_SMEM_MAX, (n, w, t, R, mode)
+            assert 2 <= g["stages"] and 1 <= g["rows_per_step"] <= R
+            assert g["slots_per_step"] * g["copy_bytes"] == g["stage_bytes"] <= 48 * 1024
+            assert g["copy_bytes"] % 16 == 0 and 0 < g["copy_bytes"] <= t
+            assert 1 <= g["blocks"] <= min(g["tiles"], 2 * 132) and g["threads"] % 32 == 0
+            assert g["tiles_per_block"] * g["blocks"] >= g["tiles"]
+        seen = np.zeros((n, t // 16), np.uint8)
+        for block in range(g["blocks"]):
+            for i, (stage, row0, rows, col0, nbytes) in enumerate(kernels.probe_steps(n, w, t, R, g, block)):
+                assert stage == i % g["stages"] and 1 <= rows <= g["rows_per_step"]
+                assert nbytes > 0 and nbytes % 16 == 0 and col0 % 16 == 0 and nbytes <= g["copy_bytes"]
+                seen[row0 : row0 + rows, col0 // 16 : (col0 + nbytes) // 16] += 1
+        assert (seen == 1).all(), (n, w, t, R)
+
+
+def test_probe_geometry_tile_order_follows_the_width():
+    """Width 1: consecutive tiles walk one row block's column chunks; wider:
+    one column chunk's row blocks (the object-wide take_rows and LT class)."""
+    g1 = kernels.probe_geometry(1280, 1, 256000, 8)
+    assert g1["order"] == "row_block" and g1["copy_bytes"] == 4096 and g1["rows_per_step"] == 8
+    a, b = [next(kernels.probe_steps(1280, 1, 256000, 8, g1, blk)) for blk in (0, 1)]
+    assert (a[1], a[3]) == (0, 0) and (b[1], b[3]) == (0, 4096)
+    g8 = kernels.probe_geometry(566, 8, 256000, 8)
+    assert g8["order"] == "column_chunk" and g8["copy_bytes"] == 2048 and g8["rows_per_step"] == 2
+    steps = list(kernels.probe_steps(566, 8, 256000, 8, g8, 0))[:5]
+    assert [(s[1], s[3]) for s in steps] == [(0, 0), (2, 0), (4, 0), (6, 0), (264 % 71 * 8, 264 // 71 * 2048)]
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: pytest -m cuda)")
     return torch.device("cuda", 0)
 
 
+def _edge_case(name):
+    """(src, idx) of the cases the ring makes edges of; the sentinel is S - 1."""
+    if name == "all_sentinel_block":  # rows 8..15 hold the sentinel alone: v2 copies nothing for them
+        src, idx = _case(301, 37, 5, 64, 0.3, name, dirty_sentinel=True)
+        idx[8:16] = 300
+    elif name == "all_sentinel":  # no copy in the whole launch
+        src, idx = _case(301, 37, 5, 64, 0.0, name, dirty_sentinel=True)
+        idx[:] = 300
+    elif name == "w1_sentinels":  # the zero strip of the width-1 body
+        src, idx = _case(300, 45, 1, 9008, 0.4, name, dirty_sentinel=True)
+    else:
+        raise AssertionError(name)
+    return src, idx
+
+
+CARD_SHAPES = SHAPES + [
+    (2049, 1280, 1, 1280, 0.0),  # take_rows at one block's width
+    (567, 566, 8, 256000, 0.2),  # the LT class at an object's width
+    (50, 8, 4, 64, 0.3),  # one tile: fewer than the ring's stages
+    (300, 45, 8, 5008, 0.3),  # n % R != 0 and t % copy != 0 together
+    (300, 45, 1, 9008, 0.0),  # the same at width 1
+    (400, 70, 32, 256, 0.4),  # R * w = 1024 at R = 32
+    (2000, 5, 1024, 64, 0.5),  # 1024 slots in one step (R = 1)
+    (3000, 1100, 2, 40960, 0.1),  # more tiles than a block's ring holds, narrow
+    "all_sentinel_block", "all_sentinel", "w1_sentinels",
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,n,w,t,frac", SHAPES + [(2049, 1280, 1, 1280, 0.0), (567, 566, 8, 256000, 0.2)])
-def test_probe_kernels_match_plain_on_card(S, n, w, t, frac):
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=str)
+def test_probe_kernels_match_plain_on_card(shape):
     dev = _card()
-    src, idx = _case(S, n, w, t, frac, "card", dirty_sentinel=True)
+    if isinstance(shape, str):
+        src, idx = _edge_case(shape)
+    else:
+        src, idx = _case(*shape, "card", dirty_sentinel=True)
+    S, w = src.shape[0], idx.shape[1]
     ts, ti = _t(src).to(dev), _t(idx).to(dev)
     want = gfmat.xor_reduce_gather(ts, ti)
     skip = gfmat.xor_reduce_gather_skip(ts, ti, S - 1)
     before = dict(kernels.LAUNCHES)
-    for R in (8, 16, 32):
+    for R in (1, 8, 16, 32):
         if R * w > 1024:
             continue
-        for mode in (0, 1, 2):
-            assert torch.equal(kernels.gather_v1(ts, ti, mode, R=R, check=True), want), (R, mode)
-        assert torch.equal(kernels.gather_db(ts, ti, R=R, check=True), want), R
         cnt = kernels.probe_counts(ti, S - 1, R)
-        assert torch.equal(kernels.gather_v2(ts, ti, cnt, S - 1, R=R, check=True), skip), R
+        for _ in range(2):  # back to back on one stream: the barriers start afresh in each launch
+            for mode in (0, 1, 2):
+                assert torch.equal(kernels.gather_v1(ts, ti, mode, R=R), want), (R, mode)
+            assert torch.equal(kernels.gather_v2(ts, ti, cnt, S - 1, R=R), skip), R
+        assert torch.equal(kernels.gather_db(ts, ti, R=R, check=True), want), R
     torch.cuda.synchronize()
     assert all(kernels.LAUNCHES[k] > before[k] for k in ("gather_v1", "gather_v2", "gather_db"))
     assert not kernels.take_index_errors(dev) and not kernels.take_count_errors(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 5])
+def test_probe_out_of_range_slots_read_as_zero_on_card(w):
+    """An index outside [0, S) copies nothing, reads as zero and sets the flag
+    (at width 1 the row is stored from the zero strip); nothing hangs."""
+    dev = _card()
+    src, idx = _case(300, 45, w, 9008, 0.2, "oob", dirty_sentinel=True)
+    bad = idx.copy()
+    bad[3, 0], bad[17, w - 1], bad[44, 0] = 300, -1, 1 << 30
+    ext = np.vstack([src, np.zeros((1, src.shape[1]), np.uint8)])  # row 300: zeros
+    want = _numpy_ref(ext, np.where((bad < 0) | (bad >= 300), 300, bad))
+    want_skip = _numpy_ref(ext, np.where((bad < 0) | (bad >= 300) | (bad == 299), 300, bad))
+    ts, tb = _t(src).to(dev), _t(bad).to(dev)
+    for R in (8, 32):
+        for mode in (0, 1, 2):
+            assert np.array_equal(kernels.gather_v1(ts, tb, mode, R=R).cpu().numpy(), want), (R, mode)
+            assert kernels.take_index_errors(dev)
+        got = kernels.gather_v2(ts, tb, kernels.probe_counts(tb, 299, R), 299, R=R)
+        assert np.array_equal(got.cpu().numpy(), want_skip), R
+        assert kernels.take_index_errors(dev) and not kernels.take_count_errors(dev)
+
+
+@pytest.mark.cuda
+def test_probe_geometry_is_the_library_rule_on_card():
+    """probe_geometry (Python) against ring_plan (the .cu file) over the grid
+    the CPU test walks."""
+    import ctypes
+
+    from nanorq_tpu_torch.ops import _build
+
+    _card()
+    lib = _build.load()
+    plan = (ctypes.c_int64 * 8)()
+    for n, w, t, R in GEOMETRY_GRID:
+        for mode in (0, 1, 2):
+            for sms in (132, 7):
+                g = kernels.probe_geometry(n, w, t, R, mode, sms)
+                assert lib.nrq_gather_stage_plan(t, n, w, R, mode, sms, plan) == 0
+                assert list(plan) == [g[k] for k in ("rows_per_step", "copy_bytes", "stages", "slots_per_step",
+                                                      "tiles", "blocks", "threads", "smem_bytes")], (n, w, t, R, mode)
 
 
 @pytest.mark.cuda
