@@ -223,6 +223,12 @@ __device__ __forceinline__ void bulk_store_hint(void* dst, const void* src, uint
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
+// Shared -> global, XORed into what is there (in L2), 4-byte units.
+__device__ __forceinline__ void bulk_xor(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.xor.b32 [%0], [%1], %2;" ::"l"(dst),
+               "r"(saddr(src)), "r"(bytes)
+               : "memory");
+}
 // Until all but the executing thread's newest N bulk groups have read their source.
 template <int N>
 __device__ __forceinline__ void bulk_wait_read() {
@@ -247,7 +253,7 @@ struct Ring {
   int cw;   // bytes of one copy: the t-tile's width
   int sps;  // slots of one step: rs * w
   int ns;   // stages
-  int strip_bytes, out_bulk, hint, contig;
+  int strip_bytes, out_bulk, hint, contig, xor_out;
 };
 
 // The steps of this block in order, for the producer and the consumers
@@ -357,7 +363,7 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
   int32_t* sidx = reinterpret_cast<int32_t*>(slotbar + (MODE == 0 ? g.ns * g.sps : 0));
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bool copy_only = g.w == 1;  // a width-1 gather is a copy: no register pass
+  const bool copy_only = g.w == 1 || g.xor_out;  // a width-1 gather is a copy: no register pass
   const int64_t t = g.t;
   const int nbar = 2 * g.ns + (MODE == 0 ? g.ns * g.sps : 0);
   for (int b = tid; b < nbar; b += blockDim.x) {
@@ -500,7 +506,15 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
       const uint8_t* stage = stages + s * stage_bytes;
       uint64_t* sb = slotbar + s * g.sps;
       bar_wait(&full[s], st.ph);
-      for (int e = lane; e < st.nrow; e += 32) {
+      if (g.xor_out) {  // measuring variant: the copy engine XORs each slot into a zeroed out
+        for (int e = lane; e < st.nrow * g.w; e += 32) {
+          if (MODE == 0) bar_wait(&sb[e], st.ph);
+          if (MODE == 1) fence_async_smem();
+          if (cls[e] >= 0)
+            bulk_xor(out + (st.row0 + e / g.w) * t + st.col0, stage + static_cast<int64_t>(e) * g.cw, st.cb);
+        }
+      }
+      for (int e = lane; e < st.nrow && !g.xor_out; e += 32) {
         if (MODE == 0) bar_wait(&sb[e], st.ph);
         const uint8_t* from = cls[e] >= 0 ? stage + static_cast<int64_t>(e) * g.cw : strip;
         if (MODE == 1) fence_async_smem();  // cp.async wrote through the generic proxy
@@ -619,7 +633,7 @@ static int tile_width(int64_t t, int slots, int64_t budget) {
 
 // Measuring hooks (0 = the rule's own value): nrq_gather_probe_tune sets them.
 static int tune_ns = 0, tune_stage_kb = 0, tune_bps = 0, tune_copy1 = 0, tune_copyw = 0;
-static int tune_out_bulk = 0, tune_hint = -1, tune_contig = 0;
+static int tune_out_bulk = 0, tune_hint = -1, tune_contig = 0, tune_xor_out = 0;
 
 // The ring's rule.  A tile is the caller's R rows by cw bytes of t; the ring
 // takes it in steps of rs rows, one stage each:
@@ -670,6 +684,7 @@ static RingLaunch ring_plan(int64_t t, int64_t n, int w, int R, int mode, int sm
   g.out_bulk = w > 1 && tune_out_bulk;
   g.hint = tune_hint >= 0 ? tune_hint : (w == 1 ? 3 : 0);  // bit 0: loads, bit 1: stores
   g.contig = tune_contig;
+  g.xor_out = w > 1 && tune_xor_out;
   g.strip_bytes = w == 1 ? g.cw : (g.out_bulk ? CONSUMER_WARPS * 2 * g.cw : 0);
   const int64_t cap = static_cast<int64_t>(tune_bps ? tune_bps : RING_BLOCKS_PER_SM) * sms;
   L.blocks = g.tiles < cap ? g.tiles : cap;
@@ -753,10 +768,10 @@ extern "C" int nrq_gather_stage_plan(int64_t t, int64_t n, int64_t w, int R, int
 }
 
 extern "C" int nrq_gather_probe_tune(int ns, int stage_kb, int bps, int copy1, int copyw,
-                                     int out_bulk, int hint, int contig) {
+                                     int out_bulk, int hint, int contig, int xor_out) {
   using namespace nrq::probe;
   tune_ns = ns, tune_stage_kb = stage_kb, tune_bps = bps, tune_copy1 = copy1, tune_copyw = copyw;
-  tune_out_bulk = out_bulk, tune_hint = hint, tune_contig = contig;
+  tune_out_bulk = out_bulk, tune_hint = hint, tune_contig = contig, tune_xor_out = xor_out;
   return 0;
 }
 

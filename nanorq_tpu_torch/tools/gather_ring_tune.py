@@ -4,8 +4,9 @@
 
 For each setting of the library's measuring hook (`nrq_gather_probe_tune`:
 stages, stage KB, blocks per SM, least copy at width 1 and wider, output by
-bulk stores from a shared-memory strip, L2 evict-first hints; 0 / -1 = the
-rule's own) it runs gather_v1 in its three modes and gather_v2 at the four
+bulk stores from a shared-memory strip, L2 evict-first hints (1 loads, 2
+stores), a block's tiles in one run, output XORed in L2 by the copy engine;
+0 / -1 = the rule's own) it runs gather_v1 in its three modes and gather_v2 at the four
 gathers chip_smoke's phase 2 takes from the K = 1000 encoder at t = 200*1280
 (take_rows, trisolve, bsel, the widest LT class), each bit-exact against the
 plain version, and times each in a CUDA graph, with K1 and, at width 1,
@@ -26,13 +27,11 @@ from nanorq_tpu_torch.ops import _build, gfmat, kernels
 from nanorq_tpu_torch.tools.matmul_forms import graph_ms
 
 WIDE = 200 * 1280
-KEYS = ("ns", "stage_kb", "bps", "copy1", "copyw", "out_bulk", "hint", "contig")
-RULE = dict(ns=0, stage_kb=0, bps=0, copy1=0, copyw=0, out_bulk=0, hint=-1, contig=0)
+KEYS = ("ns", "stage_kb", "bps", "copy1", "copyw", "out_bulk", "hint", "contig", "xor_out")
+RULE = dict(ns=0, stage_kb=0, bps=0, copy1=0, copyw=0, out_bulk=0, hint=-1, contig=0, xor_out=0)
 SETTINGS = [
-    RULE, dict(RULE, hint=0), dict(RULE, hint=1), dict(RULE, hint=2), dict(RULE, hint=3),
-    dict(RULE, ns=4, bps=1), dict(RULE, ns=4, stage_kb=24), dict(RULE, ns=2, stage_kb=48),
-    dict(RULE, copy1=8192), dict(RULE, copy1=2048), dict(RULE, copyw=4096), dict(RULE, out_bulk=1),
-    RULE, dict(RULE, hint=0), dict(RULE, hint=1), dict(RULE, hint=2), dict(RULE, hint=3),
+    RULE, dict(RULE, hint=2), dict(RULE, xor_out=1), dict(RULE, out_bulk=1),
+    RULE, dict(RULE, hint=2), dict(RULE, xor_out=1), dict(RULE, out_bulk=1),
 ]
 
 
@@ -59,8 +58,24 @@ def shapes(dev, rng):
             "bsel": (z, arr["bsel_passes"][0]), "lt_class": (u8(ds.L + 1), max(lt.classes, key=lambda c: c.numel()))}
 
 
-def calls(src, idx):
+def calls(src, idx, xor_out=False):
+    """name -> call.  With `xor_out` (the kernel XORs into out with
+    cp.reduce.async.bulk, so out starts as zeros, and the zeroing is timed
+    with it) gather_v1 alone, launched past its wrapper."""
     sent = src.shape[0] - 1
+    if xor_out and idx.shape[1] > 1:
+        lib, flag = _build.load(), torch.zeros(1, dtype=torch.int32, device=src.device)
+        (S, t), (n, w) = src.shape, idx.shape
+
+        def direct(mode):
+            res = torch.zeros((n, t), dtype=torch.uint8, device=src.device)
+            rc = lib.nrq_gather_v1(src.data_ptr(), S, t, idx.data_ptr(), n, w, mode, kernels.PROBE_R, res.data_ptr(),
+                                   flag.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"cudaError {rc}")
+            return res
+
+        return {f"v1_m{m}": (lambda m=m: direct(m)) for m in (0, 1, 2)}
     cnt = kernels.probe_counts(idx, sent)
     out = {f"v1_m{m}": (lambda m=m: kernels.gather_v1(src, idx, m)) for m in (0, 1, 2)}
     out["v2"] = lambda: kernels.gather_v2(src, idx, cnt, sent)
@@ -115,7 +130,7 @@ def main(argv=None) -> None:
         for label, (src, idx) in data.items():
             want = gfmat.xor_reduce_gather(src, idx)
             skip = gfmat.xor_reduce_gather_skip(src, idx, src.shape[0] - 1)
-            for name, fn in calls(src, idx).items():
+            for name, fn in calls(src, idx, setting["xor_out"]).items():
                 got = fn()
                 torch.cuda.synchronize()
                 if not torch.equal(got, skip if name == "v2" else want):
