@@ -11,7 +11,9 @@ Phases, each printing its own lines and its seconds:
    and t = 200*1280) and at a ragged shape; the three gather probes at K1's
    shapes, timed with their plain versions and with K1's time beside
    theirs, each shape's bytes bound and, at width 1, torch.index_select's
-   time (gather_v2's library_ms); K1 at every
+   time; gather_v1's heaviest shape in each wait mode; gather_v2 and
+   torch.index_select (its library_ms) at take_rows, both in CUDA graphs,
+   in turn; K1 at every
    gather of one warm encode (tools/gather_launches.py: the 17 launches of
    a replay and a repair LT combine at t = 200*1280, recorded as they run,
    in every mode -- out=, rows, zero_index -- each bit-exact, timed, with
@@ -148,6 +150,7 @@ def phase_parity(dev, rng, P) -> dict:
     from nanorq_tpu_torch.ops import gfmat, kernels
     from nanorq_tpu_torch.ops.lt import lt_plan
     from nanorq_tpu_torch.ops.replay import device_arrays
+    from nanorq_tpu_torch.tools.matmul_forms import graph_ms
 
     ds = encoder_schedule(P.Kp)
     arr = device_arrays(ds, dev)
@@ -164,6 +167,7 @@ def phase_parity(dev, rng, P) -> dict:
     widest = max(lt.classes, key=lambda c: c.numel())
     cases = {n: [] for n in PORTED}  # name -> [(label, main-path shape?, kernel fn, plain fn, K1 label)]
     bounds, library = {}, {}  # gather label -> (bound ms, "bytes"); K1 label -> one torch call
+    select_label = None  # the main path's width-1 gather: where gather_v2 meets index_select
     for t in (T, WIDE):
         D = zero_last(u8(ds.M_pad, t))
         z = zero_last(u8(ds.Lpad + ds.u_pad, t))
@@ -180,6 +184,8 @@ def phase_parity(dev, rng, P) -> dict:
             if ix.shape[1] == 1:  # a width-1 gather is one torch.index_select
                 library[label] = lambda s=src, i=ix[:, 0]: torch.index_select(s, 0, i)
             main = t == WIDE
+            if main and ix.shape[1] == 1:
+                select_label = label
             plain = lambda s=src, i=ix: gfmat.xor_reduce_gather(s, i)  # noqa: E731
             cases["gather_xor"].append((label, main, lambda s=src, i=ix: kernels.gather_xor(s, i), plain, None))
             for mode in (0, 1, 2):
@@ -233,6 +239,7 @@ def phase_parity(dev, rng, P) -> dict:
             continue
         worst, main_ms, main_plain, main_shape, main_k1 = 0, 0.0, 0.0, "", None
         main_lib = None
+        modes = {}  # gather_v1: wait mode -> (ms, shape) of its heaviest main-path shape
         for label, main, kfn, pfn, k1 in rows:
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
@@ -254,7 +261,19 @@ def phase_parity(dev, rng, P) -> dict:
             extra["bound_ms"] = f"{bounds[k1][0]:.4f}"
             _say("parity", kernel=name, shape=label.replace(" ", ""), exact=True,
                  ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", **extra)
-            if main and ms >= main_ms:  # the heaviest main-path shape at t=200*T
+            if main and name == "gather_v1":
+                mode = label.rsplit(" mode", 1)[1]
+                if ms >= modes.get(mode, (0.0,))[0]:
+                    modes[mode] = (ms, label, k1)
+            if name == "gather_v2" and k1 == select_label:
+                # one method, one place: the kernel and index_select in CUDA graphs, in turn, twice
+                runs = [(graph_ms(kfn, 10), graph_ms(library[k1], 10)) for _ in range(2)]
+                ms, lib = (sum(r[i] for r in runs) / len(runs) for i in (0, 1))
+                _say("parity", kernel=name, shape=label.replace(" ", ""), timing="cuda_graph", ms=f"{ms:.4f}",
+                     library_ms=f"{lib:.4f}", runs=json.dumps([[round(x, 4) for x in r] for r in runs]),
+                     bound_ms=f"{bounds[k1][0]:.4f}", share=f"{bounds[k1][0] / ms:.3f}")
+                main_ms, main_plain, main_shape, main_k1, main_lib = ms, pms, label, k1, lib
+            elif main and ms >= main_ms and name != "gather_v2":  # the heaviest main-path shape at t=200*T
                 main_ms, main_plain, main_shape, main_k1 = ms, pms, label, k1
                 main_lib = float(extra["library_ms"]) if "library_ms" in extra else None
         if name == "gather_xor":
@@ -262,7 +281,13 @@ def phase_parity(dev, rng, P) -> dict:
             continue
         b_ms, b_by = bounds[main_k1]
         report[name] = {"max_abs_err": worst, "ms": main_ms, "plain_ms": main_plain, "shape": main_shape,
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": main_lib}
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": main_lib,
+                        "timing": "cuda_graph" if name == "gather_v2" else "cuda_events"}
+        for mode, (ms, label, k1) in sorted(modes.items()):
+            _say("parity", kernel=name, mode=mode, heaviest=label.replace(" ", ""), ms=f"{ms:.4f}",
+                 k1_ms=f"{k1_ms[k1]:.4f}", bound_ms=f"{bounds[k1][0]:.4f}", share=f"{bounds[k1][0] / ms:.3f}")
+        if modes:
+            report[name]["modes"] = {mode: {"ms": ms, "shape": label} for mode, (ms, label, _) in modes.items()}
     report.update(phase_matmul(dev))
     if kernels.take_index_errors(dev) or kernels.take_count_errors(dev):
         raise AssertionError("a parity launch flagged an index or a count")
@@ -666,7 +691,9 @@ def main() -> None:
          "path": "probe" if n in PROBES else "encode+decode",
          "max_abs_err": report[n]["max_abs_err"], "ms": report[n]["ms"], "plain_ms": report[n]["plain_ms"],
          "bound_ms": report[n]["bound_ms"], "bound_by": report[n]["bound_by"],
-         "library_ms": report[n]["library_ms"], "shape": report[n]["shape"]}
+         "library_ms": report[n]["library_ms"], "shape": report[n]["shape"],
+         "timing": report[n].get("timing", "cuda_graph"),  # how ms and library_ms were taken
+         **({"modes": report[n]["modes"]} if "modes" in report[n] else {})}
         for n in PORTED]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

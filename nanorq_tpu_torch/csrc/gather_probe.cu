@@ -9,20 +9,20 @@
 // They compute K1's function (gather_xor.cu); K1 reads rows straight into
 // registers, these stage them through shared memory first.
 //
-// What bounds them on the H100: device-memory bytes, as for K1 (n*w*t bytes
-// of random source rows read, n*t written, one XOR per byte).  What the
-// probes vary is the copy engine and the completion wait in front of the
-// XOR.  TPU -> Hopper mapping:
+// What bounds them on the H100: device-memory bytes, as for K1 (the distinct
+// source rows read, n*t written, one XOR per byte); a wide gather reads its
+// n*w*t gathered bytes from L2.  What the probes vary is the copy engine and
+// the completion wait in front of the XOR.  TPU -> Hopper mapping:
 //   pltpu.make_async_copy(...).start()  -> cp.async.bulk (one row tile, one
 //                                          instruction) or cp.async (16 bytes
 //                                          per thread)
 //   DMA semaphore                        -> mbarrier in shared memory
 //   v1 mode 0: waiter.wait() per copy    -> one mbarrier per copy, each
-//                                          expecting its tile's bytes; every
-//                                          thread waits on each in turn
-//   v1 mode 1: semaphore_wait(R*w)       -> cp.async 16-byte copies by every
-//                                          thread, each thread's copies
-//                                          counted as one arrival
+//                                          expecting its tile's bytes; a
+//                                          consumer waits on the w of its row
+//   v1 mode 1: semaphore_wait(R*w)       -> cp.async 16-byte copies by the
+//                                          producer threads, each thread's
+//                                          copies counted as one arrival
 //                                          (cp.async.mbarrier.arrive.noinc);
 //                                          one wait counted in arrivals
 //   v1 mode 2: semaphore_wait(bytes)     -> cp.async.bulk per copy, one
@@ -40,27 +40,55 @@
 //                                          issuing step i's copies before it
 //                                          reduces step i-1
 //
-// Tiles (the TPU's R in {8,16,32} x tw up to 40960 needs up to 10 MB of VMEM;
-// a block has 227 KB):
-// - R output rows per block, 1 <= R <= 32, chosen by the caller (default 8);
-//   any n, the last row block is a tail;
-// - tw bytes of each row per copy: the largest multiple of 16 with
-//   R*w*tw <= 64 KB (v1, v2) or <= 32 KB per stage (db), capped at t; the last
-//   t-tile is a tail;
-// - R*w <= 1024 slots;
-// - 256 threads; v1/v2 grid = (ceil(n/R), ceil(t/tw));
-// - db grid = (ceil(t/tw), sweeps): the row blocks of a tile are split into
-//   sweeps of at least 4 steps so that about 264 blocks (2 per SM) run.
-// Bulk copies need 16-byte sizes and addresses: t % 16 == 0 and 16-byte
-// aligned src and out, else the launch is refused (K1 takes ragged widths).
-// An index outside [0, S) copies nothing, reads as zero and sets *err.
+// v1 and v2 are one persistent pipeline (gather_stage_kernel):
+// - a tile is the caller's R rows (1 <= R <= 32, default 8; the last row
+//   block is a tail) by cw bytes of t (the last t-tile is a tail), and the
+//   ring takes it in steps of rs rows (ring_plan states the rule for cw and
+//   rs: a tile is one step where its copies stay at the least copy size or
+//   above, else fewer rows per step rather than narrower copies).  At width 1
+//   consecutive tiles walk one row block's column chunks (long runs in device
+//   memory); wider, one column chunk's row blocks, so that the resident
+//   blocks read one column chunk of the source and find in L2 a row that many
+//   output rows read;
+// - a 1-D grid of RING_BLOCKS_PER_SM blocks per SM; the tiles are dealt round
+//   the blocks (block, block + blocks, ...), or, where a launch has few
+//   tiles, its single steps, so that R sets the tails and v2's counts and
+//   not how far a small launch spreads;
+// - a ring of RING_NS stages of up to RING_STAGE bytes, a step each, each
+//   with a "full" and an "empty" mbarrier whose phases both sides follow by
+//   parity, set up once per block;
+// - producers (one warp; four for mode 1, where a copy moves 16 bytes and
+//   no more): a step's indices, loaded one step ahead so that their way from
+//   device memory is off the chain, are classed (a row, SKIP, BAD) into the
+//   stage's own strip, its bytes are posted and its copies issued, a lane per
+//   slot, while the consumers reduce earlier steps; v2's count of a row block
+//   is taken here, once, behind the copies of the block's first step;
+// - consumers (eight warps): a warp per row, the rows dealt round over the
+//   steps so that every warp works whatever rs is; a row's classes are read
+//   once and shared by shuffles, no division in the loop, 16-byte stores from
+//   registers; the warp then arrives on the stage's empty barrier;
+// - width 1 has no register pass: one warp stores each landed slot straight
+//   from its stage to out with a bulk store (evict-first in L2: the row is
+//   written once), a SKIP or BAD slot from a strip of zeros, and releases the
+//   stage once the store has read it.
+// Measured and not kept (PERF.md): an output strip in shared memory drained by
+// one bulk store per row, the copy engine's XOR into out
+// (cp.reduce.async.bulk), a block's tiles in one run, evict-first loads.
+//
+// db keeps the older shape: R rows per block, tw bytes per copy (the largest
+// multiple of 16 with R*w*tw <= 32 KB per stage, capped at t), 256 threads,
+// grid = (ceil(t/tw), sweeps): the row blocks of a tile are split into
+// sweeps of at least 4 steps so that about 264 blocks (2 per SM) run.
+// All three: R*w <= 1024 slots.  Bulk copies need 16-byte sizes and
+// addresses: t % 16 == 0 and 16-byte aligned src and out, else the launch is
+// refused (K1 takes ragged widths).  An index outside [0, S) copies nothing,
+// reads as zero and sets *err.
 #include "common.cuh"
 
 namespace nrq {
 namespace probe {
 
 constexpr int THREADS = 256;
-constexpr int64_t STAGE_BYTES = 64 * 1024;
 constexpr int64_t DB_STAGE_BYTES = 32 * 1024;
 constexpr int MAX_R = 32;
 constexpr int MAX_SLOTS = 1024;
@@ -179,10 +207,10 @@ __host__ __device__ __forceinline__ int64_t align8(int64_t x) { return (x + 7) /
 
 // --- v1 and v2: a persistent ring of stages --------------------------------
 
-constexpr int CONSUMER_WARPS = 8;
+constexpr int CONSUMER_WARPS = 8;  // a power of two: the rows are dealt round by a mask
 constexpr int BULK_PRODUCER_WARPS = 1;   // modes 0 and 2, v2: one lane issues one bulk copy
-// mode 1: a cp.async moves 16 bytes, so a 32 KB stage is 2048 instructions;
-// four warps issue them at 16 a thread, and leave the consumers their issue slots
+// mode 1: a cp.async moves 16 bytes, so a 32 KB stage is 2048 of them; four
+// warps issue them at 16 a thread, and leave the consumers their issue slots
 constexpr int ASYNC_PRODUCER_WARPS = 4;
 constexpr int ASYNC_PRODUCER_THREADS = ASYNC_PRODUCER_WARPS * 32;
 constexpr int64_t SMEM_MAX = 232448;  // 227 KB: what one block may have
@@ -199,35 +227,16 @@ __device__ __forceinline__ uint64_t evict_first_policy() {
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
   return p;
 }
-// Like bulk_copy, with an L2 eviction policy for the lines it reads.
-__device__ __forceinline__ void bulk_copy_hint(void* dst, const void* src, uint32_t bytes,
-                                               uint64_t* bar, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
-      "[%0], [%1], %2, [%3], %4;" ::"r"(saddr(dst)),
-      "l"(src), "r"(bytes), "r"(saddr(bar)), "l"(policy)
-      : "memory");
-}
-// Shared -> global, tracked by the executing thread's bulk groups.
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-               "r"(saddr(src)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_store_hint(void* dst, const void* src, uint32_t bytes,
-                                                uint64_t policy) {
+// Shared -> global under an L2 eviction policy, tracked by the executing
+// thread's bulk groups.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes,
+                                           uint64_t policy) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;" ::"l"(dst),
                "r"(saddr(src)), "r"(bytes), "l"(policy)
                : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-// Shared -> global, XORed into what is there (in L2), 4-byte units.
-__device__ __forceinline__ void bulk_xor(void* dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.xor.b32 [%0], [%1], %2;" ::"l"(dst),
-               "r"(saddr(src)), "r"(bytes)
-               : "memory");
 }
 // Until all but the executing thread's newest N bulk groups have read their source.
 template <int N>
@@ -247,73 +256,100 @@ __device__ __forceinline__ int32_t classify(int32_t r, int64_t S, int32_t sentin
 
 // What a launch of the ring is cut into (ring_plan below states the rule).
 struct Ring {
-  int64_t n, t, row_blocks, chunks, tiles;
+  int64_t n, t, row_blocks, chunks;
+  int64_t units;  // steps of the launch: tiles * spt (a tail row block leaves some empty)
   int w, R;
+  int spt;  // steps of a tile: ceil(R / rs)
+  int deal;  // steps a block takes in a row: spt (whole tiles) or 1
   int rs;   // rows of one step (one stage of the ring)
   int cw;   // bytes of one copy: the t-tile's width
   int sps;  // slots of one step: rs * w
   int ns;   // stages
-  int strip_bytes, out_bulk, hint, contig, xor_out;
+  int strip_bytes;  // width 1: the strip of zeros, cw bytes
 };
 
+// q = x / d, r = x % d; in 32 bits where both fit (a 64-bit division is a
+// call into a long routine).
+__device__ __forceinline__ void divmod(int64_t x, int64_t d, int64_t& q, int64_t& r) {
+  if (((x | d) >> 32) == 0) {
+    const uint32_t xs = static_cast<uint32_t>(x), ds = static_cast<uint32_t>(d);
+    q = xs / ds, r = xs % ds;
+  } else {
+    q = x / d, r = x % d;
+  }
+}
+
 // The steps of this block in order, for the producer and the consumers
-// alike: tiles blockIdx.x, blockIdx.x + gridDim.x, ... (or, with g.contig, a
-// run of consecutive tiles); a tile (a row block of R rows x a t-tile of cw
-// bytes) in steps of rs rows.  next() moves to the first or the next step.
+// alike.  The launch is g.units steps, tile after tile (a tile: a row block
+// of R rows x a t-tile of cw bytes, in g.spt steps of rs rows); the block
+// takes runs of g.deal steps, runs blockIdx.x, blockIdx.x + gridDim.x, ...:
+// whole tiles, or single steps where the launch has few tiles, so that it
+// still spreads over the card.  next() moves to the first or the
+// next step that has rows; the producer's next() is on the chain from one
+// step's copies to the next one's, so it divides nothing.
 struct Step {
   int s = -1;                // the step's stage ...
   uint32_t ph = 0;           // ... and the parity of this use of it
   int64_t rb = 0, row0 = 0, col0 = 0;  // row block; first row and byte of the step
   int nrow = 0, cb = 0;      // rows and bytes of the step
-  bool last = false;         // the last step of its tile
+  bool counts = false;       // the first step of a row block's first tile: v2's count is checked here
 };
 
 struct Steps : Step {
   const Ring& g;
-  int64_t tile, end, stride;
-  int64_t dim, a, b, step_q, step_r;  // tile = b * dim + a, and the stride likewise
-  int rows = 0, r0 = 0;               // of the tile: its rows, the step's first
+  int64_t unit;           // the next step to look at: (b * dim + a) * g.spt + sub
+  int64_t dim, a, b;      // dim: the extent of the tile coordinate that runs first
+  int64_t jump, jump_a, jump_b;  // from a run's last step to the block's next run, and its parts
+  int sub, jump_sub;
+  int k = 0;              // steps taken of the current run of g.deal
 
-  __device__ explicit Steps(const Ring& g_) : g(g_) {
-    int64_t first;
-    if (g.contig) {
-      const int64_t per = (g.tiles + gridDim.x - 1) / gridDim.x;
-      stride = 1;
-      first = blockIdx.x * per;
-      end = first + per < g.tiles ? first + per : g.tiles;
-    } else {
-      stride = gridDim.x;
-      first = blockIdx.x;
-      end = g.tiles;
-    }
-    dim = g.w == 1 ? g.chunks : g.row_blocks;  // the coordinate that runs first
-    step_q = stride / dim, step_r = stride % dim;
-    tile = first - stride;  // one tile before the first, and its coordinates
-    a = first % dim - step_r, b = first / dim - step_q;
-    if (a < 0) a += dim, --b;
+  __device__ explicit Steps(const Ring& g_) : g(g_), unit(static_cast<int64_t>(blockIdx.x) * g_.deal) {
+    dim = g.w == 1 ? g.chunks : g.row_blocks;
+    int64_t tile, part;
+    divmod(unit, g.spt, tile, part);
+    sub = static_cast<int>(part);
+    divmod(tile, dim, b, a);
+    jump = (static_cast<int64_t>(gridDim.x) - 1) * g.deal + 1;
+    divmod(jump, g.spt, tile, part);
+    jump_sub = static_cast<int>(part);
+    divmod(tile, dim, jump_b, jump_a);
   }
   __device__ bool next() {
-    r0 += g.rs;
-    if (r0 >= rows) {
-      tile += stride;
-      if (tile >= end) return false;
-      a += step_r, b += step_q;
-      if (a >= dim) a -= dim, ++b;
+    for (;; advance()) {
+      if (unit >= g.units) return false;
       rb = g.w == 1 ? b : a;
+      const int rows = static_cast<int>(g.n - rb * g.R < g.R ? g.n - rb * g.R : g.R);
+      const int r0 = sub * g.rs;
+      if (r0 >= rows) continue;  // a tail row block has fewer steps
       const int64_t cc = g.w == 1 ? a : b;
-      rows = static_cast<int>(g.n - rb * g.R < g.R ? g.n - rb * g.R : g.R);
+      row0 = rb * g.R + r0;
+      nrow = rows - r0 < g.rs ? rows - r0 : g.rs;
       col0 = cc * g.cw;
       cb = static_cast<int>(g.t - col0 < g.cw ? g.t - col0 : g.cw);
-      r0 = 0;
+      counts = sub == 0 && cc == 0;
+      if (++s == g.ns) {
+        s = 0;
+        ph ^= 1;
+      }
+      advance();
+      return true;
     }
-    row0 = rb * g.R + r0;
-    nrow = rows - r0 < g.rs ? rows - r0 : g.rs;
-    last = r0 + nrow >= rows;
-    if (++s == g.ns) {
-      s = 0;
-      ph ^= 1;
+  }
+  // To the block's next step, with no division: the next of its run (a run
+  // of g.spt is a tile, so it stays inside it), or the first of its next
+  // run, each coordinate carrying into the next.
+  __device__ void advance() {
+    if (++k < g.deal) {
+      ++unit, ++sub;
+      return;
     }
-    return true;
+    k = 0;
+    unit += jump;
+    sub += jump_sub;
+    a += jump_a;
+    b += jump_b;
+    if (sub >= g.spt) sub -= g.spt, ++a;
+    if (a >= dim) a -= dim, ++b;
   }
 };
 
@@ -356,14 +392,14 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
   extern __shared__ __align__(128) uint8_t smem[];
   const int64_t stage_bytes = static_cast<int64_t>(g.sps) * g.cw;
   uint8_t* stages = smem;
-  uint8_t* strip = smem + g.ns * stage_bytes;  // w == 1: zeros; else the output strips
+  uint8_t* strip = smem + g.ns * stage_bytes;  // w == 1: zeros
   uint64_t* full = reinterpret_cast<uint64_t*>(strip + g.strip_bytes);
   uint64_t* empty = full + g.ns;
   uint64_t* slotbar = empty + g.ns;  // MODE 0: one per slot of every stage
   int32_t* sidx = reinterpret_cast<int32_t*>(slotbar + (MODE == 0 ? g.ns * g.sps : 0));
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bool copy_only = g.w == 1 || g.xor_out;  // a width-1 gather is a copy: no register pass
+  const bool copy_only = g.w == 1;  // a width-1 gather is a copy: no register pass
   const int64_t t = g.t;
   const int nbar = 2 * g.ns + (MODE == 0 ? g.ns * g.sps : 0);
   for (int b = tid; b < nbar; b += blockDim.x) {
@@ -379,7 +415,6 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
   }
   bar_init_fence();
   __syncthreads();
-  const uint64_t policy = g.hint ? evict_first_policy() : 0;
 
   if (warp >= CONSUMER_WARPS) {
     // ---- producers: a step's indices, its expected bytes, its copies.  The
@@ -429,7 +464,6 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
         }
       };
       prefetch();
-      int counted = 0;  // v2: the non-sentinel slots of the tile so far
       while (more) {
         const Step st = ahead;
         int32_t now[PF];
@@ -454,9 +488,7 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
             if (e < g.sps) {  // every slot's barrier completes a phase in every step
               if (r >= 0) {
                 bar_expect(&sb[e], cb);
-                uint8_t* d = stage + static_cast<int64_t>(e) * g.cw;
-                if (g.hint & 1) bulk_copy_hint(d, src + r * t + col0, cb, &sb[e], policy);
-                else bulk_copy(d, src + r * t + col0, cb, &sb[e]);
+                bulk_copy(stage + static_cast<int64_t>(e) * g.cw, src + r * t + col0, cb, &sb[e]);
               } else {
                 bar_arrive(&sb[e]);
               }
@@ -464,7 +496,6 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
           } else {
             ncopy += __popc(__ballot_sync(0xffffffffu, r >= 0));
           }
-          if (V2) counted += __popc(__ballot_sync(0xffffffffu, r != SKIP));
         };
 #pragma unroll
         for (int j = 0; j < PF; ++j)
@@ -484,20 +515,25 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
           for (int e = lane; e < nslots; e += 32) {
             const int32_t r = cls[e];
             if (r < 0) continue;
-            uint8_t* d = stage + static_cast<int64_t>(e) * g.cw;
-            if (g.hint & 1) bulk_copy_hint(d, src + r * t + col0, cb, &full[s], policy);
-            else bulk_copy(d, src + r * t + col0, cb, &full[s]);
+            bulk_copy(stage + static_cast<int64_t>(e) * g.cw, src + r * t + col0, cb, &full[s]);
           }
         }
-        if (V2 && st.last) {
+        if (V2 && st.counts) {  // after the copies are on their way: the row block's own count
+          const int64_t first = st.rb * g.R;
+          const int slots = static_cast<int>(g.n - first < g.R ? g.n - first : g.R) * g.w;
+          int counted = 0;
+          for (int b = 0; b < slots; b += 32) {
+            const bool is = b + lane < slots && idx[first * g.w + b + lane] != sentinel;
+            counted += __popc(__ballot_sync(0xffffffffu, is));
+          }
           if (lane == 0 && counted != cnt[st.rb]) *cnt_err = 1;
-          counted = 0;
         }
       }
     }
   } else if (copy_only) {
     // ---- width 1: one warp stores each landed slot straight from its stage ----
     if (warp != 0) return;
+    const uint64_t policy = evict_first_policy();  // a row is written once
     int prev = -1;
     Steps st(g);
     while (st.next()) {
@@ -506,21 +542,11 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
       const uint8_t* stage = stages + s * stage_bytes;
       uint64_t* sb = slotbar + s * g.sps;
       bar_wait(&full[s], st.ph);
-      if (g.xor_out) {  // measuring variant: the copy engine XORs each slot into a zeroed out
-        for (int e = lane; e < st.nrow * g.w; e += 32) {
-          if (MODE == 0) bar_wait(&sb[e], st.ph);
-          if (MODE == 1) fence_async_smem();
-          if (cls[e] >= 0)
-            bulk_xor(out + (st.row0 + e / g.w) * t + st.col0, stage + static_cast<int64_t>(e) * g.cw, st.cb);
-        }
-      }
-      for (int e = lane; e < st.nrow && !g.xor_out; e += 32) {
+      for (int e = lane; e < st.nrow; e += 32) {
         if (MODE == 0) bar_wait(&sb[e], st.ph);
         const uint8_t* from = cls[e] >= 0 ? stage + static_cast<int64_t>(e) * g.cw : strip;
         if (MODE == 1) fence_async_smem();  // cp.async wrote through the generic proxy
-        uint8_t* to = out + (st.row0 + e) * t + st.col0;
-        if (g.hint & 2) bulk_store_hint(to, from, st.cb, policy);
-        else bulk_store(to, from, st.cb);
+        bulk_store(out + (st.row0 + e) * t + st.col0, from, st.cb, policy);
       }
       bulk_commit();
       if (prev >= 0) {  // the step before has been read out of its stage: release it
@@ -533,8 +559,7 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
     bulk_wait_read<0>();
   } else {
     // ---- consumers: a warp per row, the rows dealt round over the steps ----
-    int rot = 0, buf = 0;
-    uint8_t* mystrip = strip + static_cast<int64_t>(warp) * 2 * g.cw;
+    int rot = 0;
     Steps st(g);
     while (st.next()) {
       const int s = st.s, cb = st.cb;
@@ -548,28 +573,12 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
           __syncwarp();
         }
         const uint8_t* slots = stage + static_cast<int64_t>(r) * g.w * g.cw;
-        uint8_t* orow = out + (st.row0 + r) * t + st.col0;
-        if (g.out_bulk) {
-          if (lane == 0) bulk_wait_read<1>();  // this strip's last store has been read
-          __syncwarp();
-          uint8_t* sbuf = mystrip + buf * g.cw;
-          reduce_row(slots, cls + r * g.w, g.w, g.cw, cb, sbuf, lane);
-          fence_async_smem();
-          __syncwarp();
-          if (lane == 0) {
-            bulk_store(orow, sbuf, cb);
-            bulk_commit();
-          }
-          buf ^= 1;
-        } else {
-          reduce_row(slots, cls + r * g.w, g.w, g.cw, cb, orow, lane);
-        }
+        reduce_row(slots, cls + r * g.w, g.w, g.cw, cb, out + (st.row0 + r) * t + st.col0, lane);
       }
       rot = (rot + st.nrow) & (CONSUMER_WARPS - 1);
       __syncwarp();
       if (lane == 0) bar_arrive(&empty[s]);
     }
-    if (g.out_bulk && lane == 0) bulk_wait_read<0>();
   }
 }
 
@@ -631,23 +640,28 @@ static int tile_width(int64_t t, int slots, int64_t budget) {
   return static_cast<int>(tw < t ? tw : t);
 }
 
-// Measuring hooks (0 = the rule's own value): nrq_gather_probe_tune sets them.
-static int tune_ns = 0, tune_stage_kb = 0, tune_bps = 0, tune_copy1 = 0, tune_copyw = 0;
-static int tune_out_bulk = 0, tune_hint = -1, tune_contig = 0, tune_xor_out = 0;
-
 // The ring's rule.  A tile is the caller's R rows by cw bytes of t; the ring
 // takes it in steps of rs rows, one stage each:
-// - cw = STAGE / (R*w) bytes (16-byte units), so that a tile is one step;
-// - but where that copy falls below the least copy (COPY_1 at width 1,
-//   COPY_W wider), fewer rows per step rather than narrower copies:
-//   cw = the least copy, or STAGE / w where w rows of it do not fit;
-// - cw <= t; wider than 1, cw <= COPY_W_MAX (the output strips, one row each);
-// - rs = the rows of cw*w bytes that fit a stage, at most R.
-// Blocks: BLOCKS_PER_SM per SM, at most one per tile.
+// - cw = RING_STAGE / (R*w) bytes (16-byte units), so that a tile is one step;
+// - but where that copy falls below the least copy (RING_COPY_1 at width 1,
+//   RING_COPY_W wider), fewer rows per step rather than narrower copies:
+//   cw = the least copy, or RING_STAGE / w where w of them do not fit a stage;
+// - cw <= t;
+// - rs = the rows of w copies that fit a stage, at most R.
+// Blocks: RING_BLOCKS_PER_SM per SM.  Tiles are dealt round the blocks; a
+// launch of fewer than RING_TILES_PER_BLOCK tiles a block deals single steps
+// instead, whatever tile they belong to, so that R sets the tails and v2's
+// counts and not how far a small launch spreads or how evenly (whole tiles
+// are 5-9% faster where there are enough: a block then reads its tile's
+// indices and source columns in turn).  Measured on the H100 (PERF.md): two
+// blocks of three 32 KB stages beat one block of four (two producers share
+// an SM's copy engine), 1 KB copies cost 1.4x and 512-byte ones 2.7x of 2 KB
+// ones, and at width 1 nothing from 2 KB to 32 KB moved the time.
 constexpr int RING_NS = 3;
 constexpr int64_t RING_STAGE = 32 * 1024;
-constexpr int64_t RING_COPY_1 = 4096, RING_COPY_W = 2048, RING_COPY_W_MAX = 4096;
+constexpr int64_t RING_COPY_1 = 4096, RING_COPY_W = 2048;
 constexpr int RING_BLOCKS_PER_SM = 2;
+constexpr int RING_TILES_PER_BLOCK = 4;
 
 struct RingLaunch {
   Ring g;
@@ -656,17 +670,14 @@ struct RingLaunch {
 };
 
 static RingLaunch ring_plan(int64_t t, int64_t n, int w, int R, int mode, int sms) {
-  const int64_t stage = tune_stage_kb ? tune_stage_kb * 1024 : RING_STAGE;
-  const int64_t least = w == 1 ? (tune_copy1 ? tune_copy1 : RING_COPY_1)
-                               : (tune_copyw ? tune_copyw : RING_COPY_W);
-  int64_t cw = stage / (static_cast<int64_t>(R) * w) / 16 * 16;
+  const int64_t least = w == 1 ? RING_COPY_1 : RING_COPY_W;
+  int64_t cw = RING_STAGE / (static_cast<int64_t>(R) * w) / 16 * 16;
   if (cw < least) {
-    cw = stage / w / 16 * 16;
+    cw = RING_STAGE / w / 16 * 16;
     if (cw > least) cw = least;
   }
-  if (w > 1 && cw > RING_COPY_W_MAX) cw = RING_COPY_W_MAX;
   if (cw > t) cw = t;
-  int64_t rs = stage / (w * cw);
+  int64_t rs = RING_STAGE / (w * cw);
   if (rs > R) rs = R;
   RingLaunch L;
   Ring& g = L.g;
@@ -677,17 +688,17 @@ static RingLaunch ring_plan(int64_t t, int64_t n, int w, int R, int mode, int sm
   g.rs = static_cast<int>(rs);
   g.cw = static_cast<int>(cw);
   g.sps = g.rs * w;
-  g.ns = tune_ns ? tune_ns : RING_NS;
+  g.ns = RING_NS;
+  g.spt = static_cast<int>((R + rs - 1) / rs);
   g.row_blocks = (n + R - 1) / R;
   g.chunks = (t + cw - 1) / cw;
-  g.tiles = g.row_blocks * g.chunks;
-  g.out_bulk = w > 1 && tune_out_bulk;
-  g.hint = tune_hint >= 0 ? tune_hint : (w == 1 ? 3 : 0);  // bit 0: loads, bit 1: stores
-  g.contig = tune_contig;
-  g.xor_out = w > 1 && tune_xor_out;
-  g.strip_bytes = w == 1 ? g.cw : (g.out_bulk ? CONSUMER_WARPS * 2 * g.cw : 0);
-  const int64_t cap = static_cast<int64_t>(tune_bps ? tune_bps : RING_BLOCKS_PER_SM) * sms;
-  L.blocks = g.tiles < cap ? g.tiles : cap;
+  const int64_t tiles = g.row_blocks * g.chunks;
+  g.units = tiles * g.spt;
+  g.strip_bytes = w == 1 ? g.cw : 0;
+  const int64_t cap = static_cast<int64_t>(RING_BLOCKS_PER_SM) * sms;
+  g.deal = tiles >= RING_TILES_PER_BLOCK * cap ? g.spt : 1;
+  const int64_t runs = g.units / g.deal;
+  L.blocks = runs < cap ? runs : cap;
   L.threads = (CONSUMER_WARPS + producer_warps(mode)) * 32;
   const int64_t nbar = 2 * g.ns + (mode == 0 ? static_cast<int64_t>(g.ns) * g.sps : 0);
   L.smem = static_cast<int64_t>(g.ns) * g.sps * g.cw + g.strip_bytes + 8 * nbar +
@@ -717,8 +728,7 @@ static cudaError_t launch_stage(int mode, bool v2, const void* src, int64_t S, i
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   const RingLaunch L = ring_plan(t, n, static_cast<int>(w), R, mode, sms);
-  if (L.smem > SMEM_MAX || L.g.ns < 2 || L.g.tiles > 0x7fffffffffffLL)
-    return cudaErrorInvalidConfiguration;
+  if (L.smem > SMEM_MAX) return cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* sp = static_cast<const uint8_t*>(src);
   const auto* ip = static_cast<const int32_t*>(idx);
@@ -757,21 +767,13 @@ extern "C" int nrq_gather_v2(const void* src, int64_t S, int64_t t, const void* 
 }
 
 // The ring's plan for a launch on a card of `sms` SMs, as eight numbers: rows
-// per step, bytes per copy, stages, slots per step, tiles, blocks, threads,
+// per step, bytes per copy, stages, slots per step, steps, blocks, threads,
 // shared-memory bytes (ops/kernels.probe_geometry states the same rule).
 extern "C" int nrq_gather_stage_plan(int64_t t, int64_t n, int64_t w, int R, int mode, int sms,
                                      int64_t* plan) {
   const auto L = nrq::probe::ring_plan(t, n, static_cast<int>(w), R, mode, sms);
-  const int64_t v[8] = {L.g.rs, L.g.cw, L.g.ns, L.g.sps, L.g.tiles, L.blocks, L.threads, L.smem};
+  const int64_t v[8] = {L.g.rs, L.g.cw, L.g.ns, L.g.sps, L.g.units, L.blocks, L.threads, L.smem};
   for (int i = 0; i < 8; ++i) plan[i] = v[i];
-  return 0;
-}
-
-extern "C" int nrq_gather_probe_tune(int ns, int stage_kb, int bps, int copy1, int copyw,
-                                     int out_bulk, int hint, int contig, int xor_out) {
-  using namespace nrq::probe;
-  tune_ns = ns, tune_stage_kb = stage_kb, tune_bps = bps, tune_copy1 = copy1, tune_copyw = copyw;
-  tune_out_bulk = out_bulk, tune_hint = hint, tune_contig = contig, tune_xor_out = xor_out;
   return 0;
 }
 

@@ -71,10 +71,8 @@ def _bind(lib) -> None:
     lib.nrq_gather_v2.argtypes = [vp, i64, i64, vp, i64, i64, vp, i32, i32, vp, vp, vp, vp]
     lib.nrq_gather_db.argtypes = [vp, i64, i64, vp, i64, i64, i32, vp, vp, vp]
     lib.nrq_gather_stage_plan.argtypes = [i64, i64, i64, i32, i32, i32, ctypes.POINTER(i64)]
-    lib.nrq_gather_probe_tune.argtypes = [i32] * 9
     for fn in (lib.nrq_gather_xor, lib.nrq_gf2_matmul, lib.nrq_gf256_m4r, lib.nrq_gf256_logexp,
-               lib.nrq_gather_v1, lib.nrq_gather_v2, lib.nrq_gather_db, lib.nrq_gather_stage_plan,
-               lib.nrq_gather_probe_tune):
+               lib.nrq_gather_v1, lib.nrq_gather_v2, lib.nrq_gather_db, lib.nrq_gather_stage_plan):
         fn.restype = ctypes.c_int
 
 

@@ -334,23 +334,27 @@ _PROBE_MAX_SLOTS = 1024  # R * w: row tiles staged per block
 # probe_geometry mirrors, and the card test holds against the library's own.
 _RING_STAGES = 3
 _RING_STAGE_BYTES = 32 * 1024
-_RING_COPY_1, _RING_COPY_W, _RING_COPY_W_MAX = 4096, 2048, 4096
+_RING_COPY_1, _RING_COPY_W = 4096, 2048
 _RING_BLOCKS_PER_SM = 2
+_RING_TILES_PER_BLOCK = 4  # from this many tiles a block, whole tiles are dealt; below, single steps
 _RING_CONSUMER_WARPS = 8
-_RING_PRODUCER_WARPS = {0: 1, 1: 4, 2: 1}  # by wait mode: cp.async (1) needs an instruction per 16 bytes
+_RING_PRODUCER_WARPS = {0: 1, 1: 4, 2: 1}  # by wait mode: a cp.async (1) moves 16 bytes only
 PROBE_SMEM_MAX = 232448  # 227 KB: the shared memory one block may have on the H100
 
 
 def probe_geometry(n: int, w: int, t: int, R: int = PROBE_R, mode: int = 2, sms: int = 132) -> dict:
     """How gather_v1 (wait `mode`) and gather_v2 (mode 2) cut a launch, on a
-    card of `sms` SMs.  A tile is R rows by `copy_bytes` of t; a thread
-    block walks tiles block, block + blocks, ... and takes each in steps of
-    `rows_per_step` rows, one ring stage and `slots_per_step` copies each.
+    card of `sms` SMs.  A tile is R rows by `copy_bytes` of t, taken in
+    `steps_per_tile` steps of `rows_per_step` rows: one ring stage and
+    `slots_per_step` copies each.  The launch's `steps` (tile after tile) are
+    dealt round the `blocks` thread blocks in runs of `deal`: block b takes
+    runs b, b + blocks, ...; a run is a whole tile, or a single step where
+    the launch has fewer than four tiles for each block the card holds.
 
     copy_bytes = stage / (R*w) (in 16-byte units), so that a tile is one
     step; where that falls below the least copy (4 KB at width 1, 2 KB
     wider), the step takes fewer rows rather than narrower copies.  Tiles
-    are numbered row block first at width 1 (a block's tiles walk one row
+    are numbered row block first at width 1 (consecutive tiles walk one row
     block's column chunks) and column chunk first when wider (the resident
     blocks share one column chunk of the source)."""
     stage = _RING_STAGE_BYTES
@@ -358,19 +362,19 @@ def probe_geometry(n: int, w: int, t: int, R: int = PROBE_R, mode: int = 2, sms:
     cw = stage // (R * w) // 16 * 16
     if cw < least:
         cw = min(least, stage // w // 16 * 16)
-    if w > 1:
-        cw = min(cw, _RING_COPY_W_MAX)
     cw = min(cw, t)
     rs = min(R, stage // (w * cw))
-    ns, sps = _RING_STAGES, rs * w
+    ns, sps, spt = _RING_STAGES, rs * w, -(-R // rs)
     row_blocks, chunks = -(-n // R), -(-t // cw)
-    tiles = row_blocks * chunks
-    blocks = min(tiles, _RING_BLOCKS_PER_SM * sms)
+    steps = row_blocks * chunks * spt  # a tail row block leaves some of its tile's steps empty
+    cap = _RING_BLOCKS_PER_SM * sms
+    deal = spt if row_blocks * chunks >= _RING_TILES_PER_BLOCK * cap else 1
+    blocks = min(steps // deal, cap)
     nbar = 2 * ns + (ns * sps if mode == 0 else 0)
     strip = cw if w == 1 else 0  # the zero strip of the width-1 body
     return {"rows_per_step": rs, "copy_bytes": cw, "stages": ns, "slots_per_step": sps,
-            "stage_bytes": sps * cw, "row_blocks": row_blocks, "chunks": chunks, "tiles": tiles,
-            "blocks": blocks, "tiles_per_block": -(-tiles // blocks) if blocks else 0,
+            "stage_bytes": sps * cw, "steps_per_tile": spt, "row_blocks": row_blocks, "chunks": chunks,
+            "steps": steps, "deal": deal, "blocks": blocks,
             "threads": 32 * (_RING_CONSUMER_WARPS + _RING_PRODUCER_WARPS[mode]),
             "smem_bytes": ns * sps * cw + strip + 8 * nbar + 4 * ns * sps,
             "order": "row_block" if w == 1 else "column_chunk"}
@@ -379,18 +383,20 @@ def probe_geometry(n: int, w: int, t: int, R: int = PROBE_R, mode: int = 2, sms:
 def probe_steps(n: int, w: int, t: int, R: int, geom: dict, block: int):
     """The steps thread block `block` takes under `geom`, in order:
     (stage, first row, rows, first byte, bytes) each."""
-    rs, cw = geom["rows_per_step"], geom["copy_bytes"]
-    step = 0
-    for tile in range(block, geom["tiles"], geom["blocks"]):
+    rs, cw, spt, deal = geom["rows_per_step"], geom["copy_bytes"], geom["steps_per_tile"], geom["deal"]
+    taken = 0
+    units = (run * deal + k for run in range(block, geom["steps"] // deal, geom["blocks"]) for k in range(deal))
+    for unit in units:
+        tile, sub = divmod(unit, spt)
         if geom["order"] == "row_block":
             rb, cc = divmod(tile, geom["chunks"])
         else:
             cc, rb = divmod(tile, geom["row_blocks"])
-        rows = min(R, n - rb * R)
-        col0 = cc * cw
-        for r0 in range(0, rows, rs):
-            yield step % geom["stages"], rb * R + r0, min(rs, rows - r0), col0, min(cw, t - col0)
-            step += 1
+        rows, r0, col0 = min(R, n - rb * R), sub * rs, cc * cw
+        if r0 >= rows:  # a tail row block has fewer steps
+            continue
+        yield taken % geom["stages"], rb * R + r0, min(rs, rows - r0), col0, min(cw, t - col0)
+        taken += 1
 
 
 def probe_counts(idx: torch.Tensor, sentinel: int, R: int = PROBE_R) -> torch.Tensor:

@@ -153,8 +153,18 @@ def test_driver_runs_a_shape_on_cpu():
     line = gather_probe.run_shape("v2", (301, 37, 5, 64, 0.3, "tiny"), np.random.default_rng(0),
                                   torch.device("cpu"))
     assert line["exact"] and line["ms"] == {} and line["gathered_mb"] == 37 * 5 * 64 / 1e6
+    # the bytes bound: the distinct rows read, the output written, the indices read, at 3.35 TB/s
+    src, idx = gather_probe.probe_data(np.random.default_rng(0), 301, 37, 5, 64, 0.3)
+    assert line["bound_ms"] == (np.unique(idx).size * 64 + 37 * 64 + 37 * 5 * 4) / 3.35e12 * 1e3
+    assert line["share"] == {} and line["index_select_ms"] is None  # nothing is timed on the CPU
     with pytest.raises(SystemExit):
         gather_probe.main(["--shapes", "no-such-shape", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        gather_probe.main(["--tables", "no-such-table", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # a shape of a table that was not asked for
+        gather_probe.main(["--shapes", "bsel-1280", "--device", "cpu"])
+    lines = gather_probe.main(["--tables", "main", "--shapes", "bsel-1280", "--device", "cpu"])
+    assert [(ln["table"], ln["n"], ln["w"], ln["t"], ln["exact"]) for ln in lines] == [("main", 128, 8, 1280, True)]
 
 
 def test_gf256_matmul_batched_equals_per_block():
@@ -195,8 +205,9 @@ def test_probe_geometry_covers_every_lane_once(w):
             assert 2 <= g["stages"] and 1 <= g["rows_per_step"] <= R
             assert g["slots_per_step"] * g["copy_bytes"] == g["stage_bytes"] <= 48 * 1024
             assert g["copy_bytes"] % 16 == 0 and 0 < g["copy_bytes"] <= t
-            assert 1 <= g["blocks"] <= min(g["tiles"], 2 * 132) and g["threads"] % 32 == 0
-            assert g["tiles_per_block"] * g["blocks"] >= g["tiles"]
+            assert 1 <= g["blocks"] <= min(g["steps"], 2 * 132) and g["threads"] % 32 == 0
+            assert g["deal"] in (1, g["steps_per_tile"])
+            assert g["steps_per_tile"] * g["rows_per_step"] >= R > (g["steps_per_tile"] - 1) * g["rows_per_step"]
         seen = np.zeros((n, t // 16), np.uint8)
         for block in range(g["blocks"]):
             for i, (stage, row0, rows, col0, nbytes) in enumerate(kernels.probe_steps(n, w, t, R, g, block)):
@@ -215,8 +226,19 @@ def test_probe_geometry_tile_order_follows_the_width():
     assert (a[1], a[3]) == (0, 0) and (b[1], b[3]) == (0, 4096)
     g8 = kernels.probe_geometry(566, 8, 256000, 8)
     assert g8["order"] == "column_chunk" and g8["copy_bytes"] == 2048 and g8["rows_per_step"] == 2
+    assert (g8["steps_per_tile"], g8["deal"], g8["steps"], g8["blocks"]) == (4, 4, 71 * 125 * 4, 264)
+    # enough tiles: a block takes whole tiles, a column chunk's row blocks in turn, then tile + blocks
     steps = list(kernels.probe_steps(566, 8, 256000, 8, g8, 0))[:5]
     assert [(s[1], s[3]) for s in steps] == [(0, 0), (2, 0), (4, 0), (6, 0), (264 % 71 * 8, 264 // 71 * 2048)]
+    # the tail row block (rows 560..565) has three steps: its fourth is no one's
+    tail = [s for blk in range(264) for s in kernels.probe_steps(566, 8, 256000, 8, g8, blk) if s[1] >= 560]
+    assert sorted({s[1] for s in tail}) == [560, 562, 564] and len(tail) == 3 * 125
+    # few tiles: single steps are dealt, so R sets the tails and not how far the launch spreads
+    for R, blocks in ((8, 71 * 3), (32, 18 * 11)):
+        small = kernels.probe_geometry(566, 8, 1280, R)
+        assert (small["copy_bytes"], small["rows_per_step"], small["deal"], small["blocks"]) == (1280, 3, 1, blocks)
+    small = kernels.probe_geometry(566, 8, 1280, 8)
+    assert [next(kernels.probe_steps(566, 8, 1280, 8, small, blk))[1] for blk in (0, 1, 2, 3)] == [0, 3, 6, 8]
 
 
 def _card():
@@ -319,7 +341,7 @@ def test_probe_geometry_is_the_library_rule_on_card():
                 g = kernels.probe_geometry(n, w, t, R, mode, sms)
                 assert lib.nrq_gather_stage_plan(t, n, w, R, mode, sms, plan) == 0
                 assert list(plan) == [g[k] for k in ("rows_per_step", "copy_bytes", "stages", "slots_per_step",
-                                                      "tiles", "blocks", "threads", "smem_bytes")], (n, w, t, R, mode)
+                                                      "steps", "blocks", "threads", "smem_bytes")], (n, w, t, R, mode)
 
 
 @pytest.mark.cuda
