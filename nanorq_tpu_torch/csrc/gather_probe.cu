@@ -34,11 +34,13 @@
 //                                          waits on its own count, flagging
 //                                          *cnt_err when the host's differs
 //                                          (a wrong cnt never hangs the card)
-//   db: two VMEM slots, sequential grid  -> two shared-memory stages with one
-//                                          mbarrier each; a block owns one
-//                                          t-tile and sweeps its row blocks,
-//                                          issuing step i's copies before it
-//                                          reduces step i-1
+//   db: two VMEM slots, sequential grid  -> two shared-memory stages, a full
+//                                          and an empty mbarrier each; a block
+//                                          owns one t-tile and sweeps a run
+//                                          of its row blocks in order: the
+//                                          producer warp issues step i's
+//                                          copies while the consumer warps
+//                                          reduce step i-1
 //
 // v1 and v2 are one persistent pipeline (gather_stage_kernel):
 // - a tile is the caller's R rows (1 <= R <= 32, default 8; the last row
@@ -75,10 +77,31 @@
 // one bulk store per row, the copy engine's XOR into out
 // (cp.reduce.async.bulk), a block's tiles in one run, evict-first loads.
 //
-// db keeps the older shape: R rows per block, tw bytes per copy (the largest
-// multiple of 16 with R*w*tw <= 32 KB per stage, capped at t), 256 threads,
-// grid = (ceil(t/tw), sweeps): the row blocks of a tile are split into
-// sweeps of at least 4 steps so that about 264 blocks (2 per SM) run.
+// db is a warp-specialised two-stage sweep (gather_db_kernel; db_plan states
+// the rule):
+// - a block owns one t-tile of cw bytes and one sweep: a contiguous run of
+//   `per` row blocks of that tile, taken in order, in steps of rs rows that
+//   never cross a row block, through two stages of up to DB_STAGE bytes (48
+//   KB: two stages, two blocks per SM).  cw and rs follow the ring's rule
+//   (copies of the least size or more, else fewer rows per step), rs then
+//   evened out over the row block's steps;
+// - the grid is tiles x sweeps, the sweeps of one tile next to each other in
+//   launch order, so that the resident blocks read few column chunks of the
+//   source and find in L2 a row that many output rows read; a sweep is about
+//   DB_SWEEP_STEPS steps, fewer where the launch would not fill the card (down
+//   to one row block), so a small launch still spreads;
+// - one producer warp, eight consumer warps, a "full" and an "empty" mbarrier
+//   per stage, set up once per block and followed by parity.  The full
+//   barrier is the stage's "armed" barrier: every consumer warp waits for it
+//   in every step, whether it has a row there or not, so no warp runs a
+//   phase ahead of a barrier it did not wait for;
+// - the producer loads step q+1's indices before it waits for step q's stage,
+//   classes step q's into the stage's strip, posts the bytes and issues one
+//   bulk copy per slot, a lane per slot; the consumers reduce a row per warp
+//   (reduce_row) and store 16 bytes a lane from registers;
+// - width 1 takes the same register route, not the ring's bulk store from
+//   the stage: one body, and the bulk-store route measured no faster than
+//   loads and stores through registers (PERF.md).
 // All three: R*w <= 1024 slots.  Bulk copies need 16-byte sizes and
 // addresses: t % 16 == 0 and 16-byte aligned src and out, else the launch is
 // refused (K1 takes ragged widths).  An index outside [0, S) copies nothing,
@@ -88,12 +111,8 @@
 namespace nrq {
 namespace probe {
 
-constexpr int THREADS = 256;
-constexpr int64_t DB_STAGE_BYTES = 32 * 1024;
 constexpr int MAX_R = 32;
 constexpr int MAX_SLOTS = 1024;
-constexpr int64_t DB_TARGET_BLOCKS = 264;
-constexpr int64_t DB_MIN_STEPS = 4;
 constexpr int32_t SKIP = -2;  // a sentinel slot: no copy, zero, not counted
 constexpr int32_t BAD = -1;   // an index outside [0, S): no copy, zero, flagged
 
@@ -144,66 +163,6 @@ __device__ __forceinline__ void copy16(void* dst, const void* src) {
 __device__ __forceinline__ void copies_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(saddr(bar)) : "memory");
 }
-
-// The indices of `nslots` slots (rows row0.. of idx) into shared memory:
-// a sentinel becomes SKIP (when sentinel >= 0), an index outside [0, S) BAD.
-__device__ __forceinline__ void load_indices(int32_t* sidx, const int32_t* __restrict__ idx,
-                                             int64_t row0, int w, int nslots, int64_t S,
-                                             int32_t sentinel, int* err) {
-  const int32_t* ix = idx + row0 * w;
-  for (int e = threadIdx.x; e < nslots; e += blockDim.x) {
-    int32_t r = ix[e];
-    if (sentinel >= 0 && r == sentinel) {
-      r = SKIP;
-    } else if (r < 0 || r >= S) {
-      *err = 1;  // every writer stores the same value, so the race is benign
-      r = BAD;
-    }
-    sidx[e] = r;
-  }
-}
-
-// Warp 0: count the slots to copy, post their bytes on `bar` with this
-// thread's arrival, then issue one bulk copy per slot.  Returns the number of
-// slots that are not SKIP (the device's own count of v2).
-__device__ __forceinline__ int issue_bulk(uint8_t* stage, const int32_t* sidx, int nslots,
-                                          const uint8_t* __restrict__ src, int64_t t, int64_t col0,
-                                          int tb, int tw, uint64_t* bar) {
-  const int lane = threadIdx.x & 31;
-  int ncopy = 0, counted = 0;
-  for (int b = 0; b < nslots; b += 32) {
-    const int32_t r = b + lane < nslots ? sidx[b + lane] : SKIP;
-    ncopy += __popc(__ballot_sync(0xffffffffu, r >= 0));
-    counted += __popc(__ballot_sync(0xffffffffu, r != SKIP));
-  }
-  if (lane == 0) bar_expect(bar, static_cast<uint32_t>(ncopy) * tb);
-  __syncwarp();
-  for (int e = lane; e < nslots; e += 32) {
-    const int32_t r = sidx[e];
-    if (r >= 0) bulk_copy(stage + static_cast<int64_t>(e) * tw, src + r * t + col0, tb, bar);
-  }
-  return counted;
-}
-
-// XOR the w staged slots of each of `rows` rows into out (row0, col0 already
-// applied to obase); slot e = r*w + k holds tb bytes at stage + e*tw.
-__device__ __forceinline__ void reduce_rows(const uint8_t* stage, const int32_t* sidx, int rows,
-                                            int w, int tw, int tb, uint8_t* __restrict__ obase,
-                                            int64_t t) {
-  const int lanes = tb / 16;
-  for (int p = threadIdx.x; p < rows * lanes; p += blockDim.x) {
-    const int r = p / lanes, c = p - r * lanes;
-    uint4 acc = vzero<uint4>();
-    for (int k = 0; k < w; ++k) {
-      const int e = r * w + k;
-      if (sidx[e] >= 0)
-        acc = vxor(acc, *reinterpret_cast<const uint4*>(stage + static_cast<int64_t>(e) * tw + c * 16));
-    }
-    reinterpret_cast<uint4*>(obase + r * t)[c] = acc;
-  }
-}
-
-__host__ __device__ __forceinline__ int64_t align8(int64_t x) { return (x + 7) / 8 * 8; }
 
 // --- v1 and v2: a persistent ring of stages --------------------------------
 
@@ -582,50 +541,141 @@ __global__ void __launch_bounds__((CONSUMER_WARPS + producer_warps(MODE)) * 32)
   }
 }
 
-// db: one t-tile per block; the block sweeps row blocks [q0, q1) through two
-// stages, issuing step q's copies before it reduces step q-1.
-__global__ void __launch_bounds__(THREADS)
-    gather_db_kernel(const uint8_t* __restrict__ src, int64_t S, int64_t t,
-                     const int32_t* __restrict__ idx, int64_t n, int w, int R, int tw,
-                     int64_t per, uint8_t* __restrict__ out, int* err) {
+// --- db: a two-stage sweep of one t-tile's row blocks ------------------------
+
+constexpr int DB_STAGES = 2;
+constexpr int DB_THREADS = (CONSUMER_WARPS + BULK_PRODUCER_WARPS) * 32;
+constexpr int DB_BLOCKS_PER_SM = 2;
+
+// What a launch of db is cut into (db_plan below states the rule).
+struct Db {
+  int64_t n, t;
+  int64_t sweeps;  // sweeps of one t-tile; block b: tile b / sweeps, sweep b % sweeps
+  int64_t per;     // row blocks of one sweep
+  int w, R;
+  int rs;   // rows of one step (one stage)
+  int cw;   // bytes of one copy: the t-tile's width
+  int sps;  // slots of one step: rs * w
+};
+
+// The steps of this block in order, for the producer and the consumers alike:
+// the rows [sweep * per * R, (sweep + 1) * per * R) of the block's t-tile, rs
+// at a time and never across a row block, through stages 0, 1, 0, ...; the
+// divisions are done once, next() adds.
+struct Sweep {
+  int s = DB_STAGES - 1;     // the step's stage ...
+  uint32_t ph = 1;           // ... and the parity of this use of it
+  int64_t row0 = 0, col0;    // first row and byte of the step
+  int nrow = 0, cb;          // rows and bytes of the step
+  int64_t row, rb_end, end;  // the next step's first row; the end of its row block, of the sweep
+  int R, rs;
+
+  __device__ explicit Sweep(const Db& g) : R(g.R), rs(g.rs) {
+    int64_t tile, sweep;
+    divmod(blockIdx.x, g.sweeps, tile, sweep);
+    col0 = tile * g.cw;
+    cb = static_cast<int>(g.t - col0 < g.cw ? g.t - col0 : g.cw);
+    row = sweep * g.per * g.R;
+    end = row + g.per * g.R < g.n ? row + g.per * g.R : g.n;
+    rb_end = row + g.R < end ? row + g.R : end;
+  }
+  __device__ bool next() {
+    if (row >= end) return false;
+    row0 = row;
+    nrow = static_cast<int>(rb_end - row < rs ? rb_end - row : rs);
+    row += nrow;
+    if (row == rb_end) rb_end = rb_end + R < end ? rb_end + R : end;
+    if (++s == DB_STAGES) {
+      s = 0;
+      ph ^= 1;
+    }
+    return true;
+  }
+};
+
+__global__ void __launch_bounds__(DB_THREADS, DB_BLOCKS_PER_SM)
+    gather_db_kernel(const uint8_t* __restrict__ src, int64_t S, const int32_t* __restrict__ idx,
+                     const Db g, uint8_t* __restrict__ out, int* err) {
   extern __shared__ __align__(128) uint8_t smem[];
-  const int slots = R * w;
-  const int64_t sbytes = static_cast<int64_t>(slots) * tw;
-  uint8_t* stages[2] = {smem, smem + sbytes};
-  int32_t* sidxs[2] = {reinterpret_cast<int32_t*>(smem + 2 * sbytes),
-                       reinterpret_cast<int32_t*>(smem + 2 * sbytes) + slots};
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + align8(2 * sbytes + 8 * slots));
+  const int64_t stage_bytes = static_cast<int64_t>(g.sps) * g.cw;
+  uint8_t* stages = smem;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DB_STAGES * stage_bytes);
+  uint64_t* empty = full + DB_STAGES;
+  int32_t* sidx = reinterpret_cast<int32_t*>(empty + DB_STAGES);  // a strip of classes per stage
 
-  const int64_t nsteps = (n + R - 1) / R;
-  const int64_t q0 = static_cast<int64_t>(blockIdx.y) * per;
-  const int64_t q1 = q0 + per < nsteps ? q0 + per : nsteps;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * tw;
-  const int tb = static_cast<int>(t - col0 < tw ? t - col0 : tw);
-
-  if (threadIdx.x < 2) bar_init(&bars[threadIdx.x], 1);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t t = g.t;
+  // full: the producer's arrival and its copies' bytes; empty: every consumer warp
+  if (tid < 2 * DB_STAGES) bar_init(&full[tid], tid < DB_STAGES ? 1 : CONSUMER_WARPS);
   bar_init_fence();
   __syncthreads();
-  for (int64_t q = q0; q <= q1; ++q) {
-    if (q < q1) {  // issue step q into stage (q - q0) & 1
-      const int s = static_cast<int>((q - q0) & 1);
-      const int64_t row0 = q * R;
-      const int nslots = static_cast<int>(n - row0 < R ? n - row0 : R) * w;
-      load_indices(sidxs[s], idx, row0, w, nslots, S, -1, err);
-      __syncthreads();
-      if (threadIdx.x < 32) {
-        fence_async_smem();
-        issue_bulk(stages[s], sidxs[s], nslots, src, t, col0, tb, tw, &bars[s]);
+
+  if (warp >= CONSUMER_WARPS) {
+    // ---- producer: the next step's indices go into registers (the first
+    // PF*32 of them) before this step's stage is waited for, so that their
+    // way from device memory is off the chain from one step's copies to the
+    // next one's ----
+    constexpr int PF = 4;
+    Sweep ahead(g);
+    bool more = ahead.next();
+    int32_t pre[PF];
+    auto prefetch = [&]() {
+#pragma unroll
+      for (int j = 0; j < PF; ++j) {
+        const int e = j * 32 + lane;
+        pre[j] = (more && e < ahead.nrow * g.w) ? idx[ahead.row0 * g.w + e] : 0;
+      }
+    };
+    prefetch();
+    while (more) {
+      const int s = ahead.s, cb = ahead.cb, nslots = ahead.nrow * g.w;
+      const uint32_t ph = ahead.ph;
+      const int64_t col0 = ahead.col0;
+      const int32_t* ix = idx + ahead.row0 * g.w;
+      int32_t now[PF];
+#pragma unroll
+      for (int j = 0; j < PF; ++j) now[j] = pre[j];
+      more = ahead.next();
+      prefetch();
+      bar_wait(&empty[s], ph ^ 1);
+      int32_t* cls = sidx + s * g.sps;
+      uint8_t* stage = stages + s * stage_bytes;
+      int ncopy = 0;
+      // slot e of the step, its index `raw` (unread past the step's slots)
+      auto slot = [&](int e, int32_t raw) {
+        const int32_t r = e < nslots ? classify(raw, S, -1, err) : SKIP;
+        if (e < g.sps) cls[e] = r;
+        ncopy += __popc(__ballot_sync(0xffffffffu, r >= 0));
+      };
+#pragma unroll
+      for (int j = 0; j < PF; ++j)
+        if (j * 32 < g.sps) slot(j * 32 + lane, now[j]);
+      for (int b = PF * 32; b < g.sps; b += 32) slot(b + lane, b + lane < nslots ? ix[b + lane] : 0);
+      __syncwarp();
+      if (lane == 0) bar_expect(&full[s], static_cast<uint32_t>(ncopy) * cb);  // publishes the classes
+      __syncwarp();
+      for (int e = lane; e < nslots; e += 32) {
+        const int32_t r = cls[e];
+        if (r >= 0) bulk_copy(stage + static_cast<int64_t>(e) * g.cw, src + r * t + col0, cb, &full[s]);
       }
     }
-    if (q > q0) {  // reduce step q - 1: the ((q-1-q0) >> 1)-th use of its stage
-      const int64_t p = q - 1 - q0;
-      const int s = static_cast<int>(p & 1);
-      const int64_t row0 = (q - 1) * R;
-      const int rows = static_cast<int>(n - row0 < R ? n - row0 : R);
-      bar_wait(&bars[s], static_cast<uint32_t>((p >> 1) & 1));
-      reduce_rows(stages[s], sidxs[s], rows, w, tw, tb, out + row0 * t + col0, t);
+  } else {
+    // ---- consumers: a warp per row, the rows dealt round over the steps;
+    // every warp meets every step's full barrier and releases its stage ----
+    int rot = 0;
+    Sweep st(g);
+    while (st.next()) {
+      const int s = st.s;
+      const int32_t* cls = sidx + s * g.sps;
+      const uint8_t* stage = stages + s * stage_bytes;
+      bar_wait(&full[s], st.ph);
+      for (int r = (warp - rot) & (CONSUMER_WARPS - 1); r < st.nrow; r += CONSUMER_WARPS)
+        reduce_row(stage + static_cast<int64_t>(r) * g.w * g.cw, cls + r * g.w, g.w, g.cw, st.cb,
+                   out + (st.row0 + r) * t + st.col0, lane);
+      rot = (rot + st.nrow) & (CONSUMER_WARPS - 1);
+      __syncwarp();
+      if (lane == 0) bar_arrive(&empty[s]);
     }
-    __syncthreads();  // stage and indices of step q - 1 are free for step q + 1
   }
 }
 
@@ -633,11 +683,6 @@ static bool takes(const void* src, int64_t t, const void* idx, int64_t n, int64_
                   const void* out) {
   return src && idx && out && n > 0 && t > 0 && t % 16 == 0 && aligned16(src) &&
          aligned16(out) && R >= 1 && R <= MAX_R && w >= 1 && R * w <= MAX_SLOTS;
-}
-
-static int tile_width(int64_t t, int slots, int64_t budget) {
-  const int64_t tw = budget / slots / 16 * 16;
-  return static_cast<int>(tw < t ? tw : t);
 }
 
 // The ring's rule.  A tile is the caller's R rows by cw bytes of t; the ring
@@ -669,16 +714,22 @@ struct RingLaunch {
   int threads;
 };
 
-static RingLaunch ring_plan(int64_t t, int64_t n, int w, int R, int mode, int sms) {
+// cw and rs of the rule above, for stages of `stage` bytes (db's too).
+static void copy_plan(int64_t stage, int64_t t, int w, int R, int64_t& cw, int64_t& rs) {
   const int64_t least = w == 1 ? RING_COPY_1 : RING_COPY_W;
-  int64_t cw = RING_STAGE / (static_cast<int64_t>(R) * w) / 16 * 16;
+  cw = stage / (static_cast<int64_t>(R) * w) / 16 * 16;
   if (cw < least) {
-    cw = RING_STAGE / w / 16 * 16;
+    cw = stage / w / 16 * 16;
     if (cw > least) cw = least;
   }
   if (cw > t) cw = t;
-  int64_t rs = RING_STAGE / (w * cw);
+  rs = stage / (w * cw);
   if (rs > R) rs = R;
+}
+
+static RingLaunch ring_plan(int64_t t, int64_t n, int w, int R, int mode, int sms) {
+  int64_t cw, rs;
+  copy_plan(RING_STAGE, t, w, R, cw, rs);
   RingLaunch L;
   Ring& g = L.g;
   g.n = n;
@@ -706,6 +757,77 @@ static RingLaunch ring_plan(int64_t t, int64_t n, int w, int R, int mode, int sm
   return L;
 }
 
+// db's rule.  cw and rs as the ring's, for two stages of DB_STAGE bytes (two
+// blocks per SM leave each about 113 KB), rs then evened out over the steps of
+// a row block (R = 8 at three rows a stage: 3, 3, 2).  A block takes one
+// t-tile and one sweep of `per` row blocks: about DB_SWEEP_STEPS steps, so
+// that set-up and the first step's wait are paid back and yet many sweeps of
+// one tile run side by side (the resident blocks then share few column chunks
+// of the source, which stay in L2); fewer, down to one row block, where the
+// launch would otherwise not give every SM its blocks.
+constexpr int64_t DB_STAGE = 48 * 1024;
+constexpr int DB_SWEEP_STEPS = 8;
+
+struct DbLaunch {
+  Db g;
+  int64_t blocks, smem;
+};
+
+static DbLaunch db_plan(int64_t t, int64_t n, int w, int R, int sms, int64_t stage,
+                        int sweep_steps) {
+  int64_t cw, rs;
+  copy_plan(stage, t, w, R, cw, rs);
+  const int64_t spt = (R + rs - 1) / rs;  // steps of a row block
+  rs = (R + spt - 1) / spt;
+  const int64_t row_blocks = (n + R - 1) / R, tiles = (t + cw - 1) / cw;
+  int64_t per = (sweep_steps + spt - 1) / spt;
+  const int64_t spread = row_blocks * tiles / (static_cast<int64_t>(DB_BLOCKS_PER_SM) * sms);
+  if (per > spread) per = spread;
+  if (per < 1) per = 1;
+  DbLaunch L;
+  Db& g = L.g;
+  g.n = n;
+  g.t = t;
+  g.w = w;
+  g.R = R;
+  g.rs = static_cast<int>(rs);
+  g.cw = static_cast<int>(cw);
+  g.sps = g.rs * w;
+  g.per = per;
+  g.sweeps = (row_blocks + per - 1) / per;
+  L.blocks = tiles * g.sweeps;
+  L.smem = DB_STAGES * static_cast<int64_t>(g.sps) * g.cw + 8 * 2 * DB_STAGES +
+           4 * static_cast<int64_t>(DB_STAGES) * g.sps;
+  return L;
+}
+
+static cudaError_t sm_count(int& sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
+static cudaError_t launch_db(const void* src, int64_t S, int64_t t, const void* idx, int64_t n,
+                             int64_t w, int R, int64_t stage, int sweep_steps, void* out, void* err,
+                             void* stream) {
+  if (!takes(src, t, idx, n, w, R, out) || stage < 16 * w || stage > DB_STAGE || sweep_steps < 1)
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t e = sm_count(sms);
+  if (e != cudaSuccess) return e;
+  const DbLaunch L = db_plan(t, n, static_cast<int>(w), R, sms, stage, sweep_steps);
+  if (L.blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  e = cudaFuncSetAttribute(gather_db_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(L.smem));
+  if (e != cudaSuccess) return e;
+  gather_db_kernel<<<static_cast<unsigned>(L.blocks), DB_THREADS, L.smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), S, static_cast<const int32_t*>(idx), L.g,
+      static_cast<uint8_t*>(out), static_cast<int*>(err));
+  return cudaGetLastError();
+}
+
 template <typename K>
 static cudaError_t launch(K kernel, const RingLaunch& L, cudaStream_t stream, const uint8_t* src,
                           int64_t S, const int32_t* idx, const int32_t* cnt, int32_t sentinel,
@@ -723,9 +845,8 @@ static cudaError_t launch_stage(int mode, bool v2, const void* src, int64_t S, i
                                 int32_t sentinel, void* out, void* err, void* cnt_err,
                                 void* stream) {
   if (!takes(src, t, idx, n, w, R, out) || mode < 0 || mode > 2) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t e = sm_count(sms);
   if (e != cudaSuccess) return e;
   const RingLaunch L = ring_plan(t, n, static_cast<int>(w), R, mode, sms);
   if (L.smem > SMEM_MAX) return cudaErrorInvalidConfiguration;
@@ -780,22 +901,28 @@ extern "C" int nrq_gather_stage_plan(int64_t t, int64_t n, int64_t w, int R, int
 extern "C" int nrq_gather_db(const void* src, int64_t S, int64_t t, const void* idx, int64_t n,
                              int64_t w, int R, void* out, void* err, void* stream) {
   using namespace nrq::probe;
-  if (!takes(src, t, idx, n, w, R, out)) return cudaErrorInvalidValue;
-  const int slots = R * static_cast<int>(w);
-  const int tw = tile_width(t, slots, DB_STAGE_BYTES);
-  const int64_t tiles = (t + tw - 1) / tw, nsteps = (n + R - 1) / R;
-  const int64_t want = (DB_TARGET_BLOCKS + tiles - 1) / tiles;  // sweeps per tile
-  int64_t per = (nsteps + want - 1) / want;
-  if (per < DB_MIN_STEPS) per = DB_MIN_STEPS;
-  const int64_t sweeps = (nsteps + per - 1) / per;
-  if (tiles > 0x7fffffff || sweeps > 65535) return cudaErrorInvalidConfiguration;
-  const int64_t smem = align8(2 * static_cast<int64_t>(slots) * tw + 8 * slots) + 16;
-  cudaError_t e = cudaFuncSetAttribute(gather_db_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  gather_db_kernel<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(sweeps)), THREADS,
-                     smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), S, t, static_cast<const int32_t*>(idx), n,
-      static_cast<int>(w), R, tw, per, static_cast<uint8_t*>(out), static_cast<int*>(err));
-  return cudaGetLastError();
+  return launch_db(src, S, t, idx, n, w, R, DB_STAGE, DB_SWEEP_STEPS, out, err, stream);
+}
+
+// gather_db under another stage size (16 * w <= stage_bytes <= 48 KB) and sweep
+// length than db_plan's own: what tools/gather_db_tune.py times.
+extern "C" int nrq_gather_db_tuned(const void* src, int64_t S, int64_t t, const void* idx,
+                                   int64_t n, int64_t w, int R, int64_t stage_bytes,
+                                   int sweep_steps, void* out, void* err, void* stream) {
+  return nrq::probe::launch_db(src, S, t, idx, n, w, R, stage_bytes, sweep_steps, out, err,
+                               stream);
+}
+
+// db's plan for a launch on a card of `sms` SMs, as eight numbers: rows per
+// step, bytes per copy, slots per step, row blocks per sweep, sweeps per
+// t-tile, blocks, threads, shared-memory bytes (ops/kernels.db_geometry states
+// the same rule); stage_bytes and sweep_steps 0: db_plan's own.
+extern "C" int nrq_gather_db_plan(int64_t t, int64_t n, int64_t w, int R, int sms,
+                                  int64_t stage_bytes, int sweep_steps, int64_t* plan) {
+  using namespace nrq::probe;
+  const auto L = db_plan(t, n, static_cast<int>(w), R, sms, stage_bytes ? stage_bytes : DB_STAGE,
+                         sweep_steps ? sweep_steps : DB_SWEEP_STEPS);
+  const int64_t v[8] = {L.g.rs, L.g.cw, L.g.sps, L.g.per, L.g.sweeps, L.blocks, DB_THREADS, L.smem};
+  for (int i = 0; i < 8; ++i) plan[i] = v[i];
+  return 0;
 }

@@ -342,6 +342,20 @@ _RING_PRODUCER_WARPS = {0: 1, 1: 4, 2: 1}  # by wait mode: a cp.async (1) moves 
 PROBE_SMEM_MAX = 232448  # 227 KB: the shared memory one block may have on the H100
 
 
+def _copy_plan(stage: int, w: int, t: int, R: int) -> tuple[int, int]:
+    """(bytes of one copy, rows of one step) for stages of `stage` bytes: R
+    rows a step where their copies stay at the least size (4 KB at width 1,
+    2 KB wider) or above, else fewer rows rather than narrower copies; a
+    copy narrower than that only where t is, or where one row's w copies of
+    the least size do not fit a stage."""
+    least = _RING_COPY_1 if w == 1 else _RING_COPY_W
+    cw = stage // (R * w) // 16 * 16
+    if cw < least:
+        cw = min(least, stage // w // 16 * 16)
+    cw = min(cw, t)
+    return cw, min(R, stage // (w * cw))
+
+
 def probe_geometry(n: int, w: int, t: int, R: int = PROBE_R, mode: int = 2, sms: int = 132) -> dict:
     """How gather_v1 (wait `mode`) and gather_v2 (mode 2) cut a launch, on a
     card of `sms` SMs.  A tile is R rows by `copy_bytes` of t, taken in
@@ -357,13 +371,7 @@ def probe_geometry(n: int, w: int, t: int, R: int = PROBE_R, mode: int = 2, sms:
     are numbered row block first at width 1 (consecutive tiles walk one row
     block's column chunks) and column chunk first when wider (the resident
     blocks share one column chunk of the source)."""
-    stage = _RING_STAGE_BYTES
-    least = _RING_COPY_1 if w == 1 else _RING_COPY_W
-    cw = stage // (R * w) // 16 * 16
-    if cw < least:
-        cw = min(least, stage // w // 16 * 16)
-    cw = min(cw, t)
-    rs = min(R, stage // (w * cw))
+    cw, rs = _copy_plan(_RING_STAGE_BYTES, w, t, R)
     ns, sps, spt = _RING_STAGES, rs * w, -(-R // rs)
     row_blocks, chunks = -(-n // R), -(-t // cw)
     steps = row_blocks * chunks * spt  # a tail row block leaves some of its tile's steps empty
@@ -397,6 +405,55 @@ def probe_steps(n: int, w: int, t: int, R: int, geom: dict, block: int):
             continue
         yield taken % geom["stages"], rb * R + r0, min(rs, rows - r0), col0, min(cw, t - col0)
         taken += 1
+
+
+# gather_db (csrc/gather_probe.cu, db_plan): what db_geometry mirrors
+DB_STAGE_BYTES = 48 * 1024  # two stages, two blocks per SM
+DB_SWEEP_STEPS = 8
+_DB_STAGES = 2
+_DB_BLOCKS_PER_SM = 2
+DB_SMEM_MAX = (228 * 1024) // _DB_BLOCKS_PER_SM - 1024  # an SM's 228 KB, 1 KB reserved per block
+
+
+def db_geometry(n: int, w: int, t: int, R: int = PROBE_R, sms: int = 132, *,
+                stage_bytes: int = DB_STAGE_BYTES, sweep_steps: int = DB_SWEEP_STEPS) -> dict:
+    """How gather_db cuts a launch, on a card of `sms` SMs.  A block owns one
+    t-tile of `copy_bytes` and one sweep: `row_blocks_per_sweep` row blocks
+    of R rows in order, each in `steps_per_row_block` steps of at most
+    `rows_per_step` rows, through two stages.  Block b takes tile
+    b // sweeps and sweep b % sweeps, so one tile's sweeps are neighbours.
+
+    copy_bytes and rows_per_step follow the ring's rule (`_copy_plan`) for
+    a 48 KB stage, the rows then evened out over a row block's steps.  A
+    sweep is about `sweep_steps` steps; fewer, down to one row block, where
+    the launch has fewer row-block tiles than that for each block the card
+    holds."""
+    cw, rs = _copy_plan(stage_bytes, w, t, R)
+    spt = -(-R // rs)
+    rs = -(-R // spt)
+    row_blocks, tiles = -(-n // R), -(-t // cw)
+    per = max(1, min(-(-sweep_steps // spt), row_blocks * tiles // (_DB_BLOCKS_PER_SM * sms)))
+    sweeps = -(-row_blocks // per)
+    sps = rs * w
+    return {"rows_per_step": rs, "copy_bytes": cw, "stages": _DB_STAGES, "slots_per_step": sps,
+            "stage_bytes": sps * cw, "steps_per_row_block": spt, "row_blocks": row_blocks, "tiles": tiles,
+            "row_blocks_per_sweep": per, "sweeps": sweeps, "blocks": tiles * sweeps,
+            "threads": 32 * (_RING_CONSUMER_WARPS + 1),
+            "smem_bytes": _DB_STAGES * sps * cw + 8 * 2 * _DB_STAGES + 4 * _DB_STAGES * sps}
+
+
+def db_steps(n: int, w: int, t: int, R: int, geom: dict, block: int):
+    """The steps thread block `block` takes under `geom`, in order:
+    (stage, first row, rows, first byte, bytes) each."""
+    rs, cw, per = geom["rows_per_step"], geom["copy_bytes"], geom["row_blocks_per_sweep"]
+    tile, sweep = divmod(block, geom["sweeps"])
+    col0 = tile * cw
+    taken = 0
+    for rb in range(sweep * per, min((sweep + 1) * per, geom["row_blocks"])):
+        end = min((rb + 1) * R, n)
+        for row0 in range(rb * R, end, rs):
+            yield taken % _DB_STAGES, row0, min(rs, end - row0), col0, min(cw, t - col0)
+            taken += 1
 
 
 def probe_counts(idx: torch.Tensor, sentinel: int, R: int = PROBE_R) -> torch.Tensor:
@@ -489,8 +546,9 @@ def gather_v2(src: torch.Tensor, idx: torch.Tensor, cnt: torch.Tensor, sentinel:
 def gather_db(src: torch.Tensor, idx: torch.Tensor, *, R: int = PROBE_R,
               check: bool = False) -> torch.Tensor:
     """Probe P3: gather_v1's function, double-buffered -- each thread block
-    owns one t-tile and sweeps row blocks through two shared-memory stages,
-    issuing one step's copies before it reduces the step before."""
+    owns one t-tile and sweeps a run of its row blocks through two
+    shared-memory stages, a producer warp issuing one step's copies while
+    the consumer warps reduce the step before (`db_geometry`)."""
     S, t, n, w, kind = _probe_args("gather_db", src, idx, R)
     if kind == "cpu":
         return gfmat.xor_reduce_gather(src, idx)

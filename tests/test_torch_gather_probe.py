@@ -241,6 +241,71 @@ def test_probe_geometry_tile_order_follows_the_width():
     assert [next(kernels.probe_steps(566, 8, 1280, 8, small, blk))[1] for blk in (0, 1, 2, 3)] == [0, 3, 6, 8]
 
 
+def _least_copy(w, t, stage):
+    """The least copy db may issue: 4 KB at width 1, 2 KB wider, unless t
+    itself is narrower or one row's w copies of that size do not fit a stage."""
+    return min(4096 if w == 1 else 2048, t, stage // w // 16 * 16)
+
+
+@pytest.mark.parametrize("w", [1, 2, 5, 8, 16, 48, 129, 1024])
+def test_db_geometry_covers_every_lane_once(w):
+    """gather_db's launch geometry: over all blocks, the steps cover every
+    (row, 16-byte lane) of the output exactly once; a block's steps are a
+    contiguous run of one t-tile's row blocks, in order, through stages 0, 1,
+    0, ...; a step fits its stage and never crosses a row block; two blocks
+    fit an SM's shared memory; no copy is narrower than the least copy."""
+    for n, w_, t, R in GEOMETRY_GRID:
+        if w_ != w:
+            continue
+        others = ({"stage_bytes": 32 * 1024, "sweep_steps": 3}, {"sweep_steps": 64}) if n * t <= 566 * 5008 else ()
+        for knobs in ({}, *others):
+            g = kernels.db_geometry(n, w, t, R, **knobs)
+            stage = knobs.get("stage_bytes", kernels.DB_STAGE_BYTES)
+            assert g["smem_bytes"] <= kernels.DB_SMEM_MAX and g["stages"] == 2, (n, w, t, R)
+            assert g["slots_per_step"] * g["copy_bytes"] == g["stage_bytes"] <= stage
+            assert g["copy_bytes"] % 16 == 0 and _least_copy(w, t, stage) <= g["copy_bytes"] <= t
+            assert 1 <= g["rows_per_step"] <= R and g["threads"] == 288
+            assert g["steps_per_row_block"] * g["rows_per_step"] >= R > (g["steps_per_row_block"] - 1) * g["rows_per_step"]
+            assert g["blocks"] == g["tiles"] * g["sweeps"] and 1 <= g["row_blocks_per_sweep"]
+            assert (g["sweeps"] - 1) * g["row_blocks_per_sweep"] < g["row_blocks"]  # no empty sweep
+            seen = np.zeros((n, t // 16), np.uint8)
+            for block in range(g["blocks"]):
+                steps = list(kernels.db_steps(n, w, t, R, g, block))
+                assert steps, block
+                assert len({(s[3], s[4]) for s in steps}) == 1  # one t-tile
+                rows = [r for s in steps for r in range(s[1], s[1] + s[2])]
+                assert rows == list(range(rows[0], rows[0] + len(rows))) and rows[0] % R == 0
+                assert len(rows) == min(n - rows[0], g["row_blocks_per_sweep"] * R)
+                for i, (stg, row0, nrow, col0, nbytes) in enumerate(steps):
+                    assert stg == i % 2 and 1 <= nrow <= g["rows_per_step"]
+                    assert row0 // R == (row0 + nrow - 1) // R  # within one row block
+                    assert nbytes % 16 == 0 and col0 % 16 == 0 and 0 < nbytes <= g["copy_bytes"]
+                    seen[row0 : row0 + nrow, col0 // 16 : (col0 + nbytes) // 16] += 1
+            assert (seen == 1).all(), (n, w, t, R, knobs)
+
+
+def test_db_geometry_at_the_shapes_it_is_judged_on():
+    """The LT class and take_rows over an object, a probe-table shape and a
+    small launch, number by number."""
+    lt = kernels.db_geometry(566, 8, 256000, 8)
+    assert (lt["copy_bytes"], lt["rows_per_step"], lt["steps_per_row_block"]) == (2048, 3, 3)
+    assert (lt["tiles"], lt["row_blocks_per_sweep"], lt["sweeps"], lt["blocks"]) == (125, 3, 24, 3000)
+    assert lt["smem_bytes"] == 2 * 49152 + 32 + 2 * 4 * 24
+    # block 25: tile 1, sweep 1 -- row blocks 3..5 in steps of 3, 3, 2 rows
+    assert [s[1:] for s in kernels.db_steps(566, 8, 256000, 8, lt, 25)][:4] == [
+        (24, 3, 2048, 2048), (27, 3, 2048, 2048), (30, 2, 2048, 2048), (32, 3, 2048, 2048)]
+    # the last sweep of a tile ends at the tail row block (rows 560..565)
+    assert [s[1:3] for s in kernels.db_steps(566, 8, 256000, 8, lt, 23)][-2:] == [(560, 3), (563, 3)]
+    tr = kernels.db_geometry(1280, 1, 256000, 8)
+    assert (tr["copy_bytes"], tr["rows_per_step"], tr["tiles"], tr["row_blocks_per_sweep"]) == (6144, 8, 42, 8)
+    assert list(kernels.db_steps(1280, 1, 256000, 8, tr, 41 * 20))[0][3:] == (41 * 6144, 256000 - 41 * 6144)
+    # R = 16 and 32 keep the copies and cut the row block into more steps
+    assert [kernels.db_geometry(566, 8, 256000, R)["steps_per_row_block"] for R in (16, 32)] == [6, 11]
+    # a small launch: a sweep is one row block, so it spreads over 16 blocks
+    small = kernels.db_geometry(128, 8, 1280, 8)
+    assert (small["copy_bytes"], small["rows_per_step"], small["row_blocks_per_sweep"], small["blocks"]) == (1280, 4, 1, 16)
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: pytest -m cuda)")
@@ -342,6 +407,79 @@ def test_probe_geometry_is_the_library_rule_on_card():
                 assert lib.nrq_gather_stage_plan(t, n, w, R, mode, sms, plan) == 0
                 assert list(plan) == [g[k] for k in ("rows_per_step", "copy_bytes", "stages", "slots_per_step",
                                                       "steps", "blocks", "threads", "smem_bytes")], (n, w, t, R, mode)
+
+
+@pytest.mark.cuda
+def test_db_geometry_is_the_library_rule_on_card():
+    """db_geometry (Python) against db_plan (the .cu file) over the grid the
+    CPU test walks, under the rule's own constants and others."""
+    import ctypes
+
+    from nanorq_tpu_torch.ops import _build
+
+    _card()
+    lib = _build.load()
+    plan = (ctypes.c_int64 * 8)()
+    for n, w, t, R in GEOMETRY_GRID:
+        for sms in (132, 7):
+            for stage, steps in ((0, 0), (32 * 1024, 3), (16 * w, 64)):
+                knobs = {k: v for k, v in (("stage_bytes", stage), ("sweep_steps", steps)) if v}
+                g = kernels.db_geometry(n, w, t, R, sms, **knobs)
+                assert lib.nrq_gather_db_plan(t, n, w, R, sms, stage, steps, plan) == 0
+                assert list(plan) == [g[k] for k in ("rows_per_step", "copy_bytes", "slots_per_step",
+                                                      "row_blocks_per_sweep", "sweeps", "blocks", "threads",
+                                                      "smem_bytes")], (n, w, t, R, sms, knobs)
+
+
+DB_EDGES = {  # name -> (S, n, w, t, frac, R)
+    "one_step": (50, 3, 4, 64, 0.3, 8),
+    "one_row_block_a_sweep": (300, 64, 8, 1280, 0.3, 8),
+    "tails_both_ways": (300, 45, 8, 5008, 0.3, 8),
+    "tails_both_ways_w1": (300, 45, 1, 9008, 0.0, 16),
+    "long_sweeps": (600, 4000, 2, 4096, 0.1, 8),
+    "slots_1024_R1": (2000, 5, 1024, 64, 0.5, 1),
+    "slots_1024_R32": (400, 70, 32, 256, 0.4, 32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DB_EDGES))
+def test_db_edges_on_card(name):
+    """gather_db where its sweep has edges: one step, a sweep of one row
+    block, tails in rows and in t, sweeps of many steps, 1024 slots; each
+    launched back to back, under the rule's constants and under others."""
+    from nanorq_tpu_torch.tools.gather_db_tune import _tuned
+
+    dev = _card()
+    S, n, w, t, frac, R = DB_EDGES[name]
+    src, idx = _case(S, n, w, t, frac, "db", name, dirty_sentinel=True)
+    ts, ti = _t(src).to(dev), _t(idx).to(dev)
+    want = gfmat.xor_reduce_gather(ts, ti)
+    for _ in range(3):  # back to back on one stream: the barriers start afresh in each launch
+        assert torch.equal(kernels.gather_db(ts, ti, R=R), want)
+    for stage, steps in ((16 * w, 1), (32 * 1024, 3), (48 * 1024, 1000)):
+        assert torch.equal(_tuned(ts, ti, R, stage, steps), want), (stage, steps)
+    assert not kernels.take_index_errors(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 5])
+def test_db_out_of_range_steps_on_card(w):
+    """Steps whose every index lies outside [0, S) copy nothing, read as zero
+    and set the flag; the sweep goes on, and nothing hangs."""
+    dev = _card()
+    src, idx = _case(300, 90, w, 9008, 0.2, "db-oob")
+    bad = idx.copy()
+    bad[16:40] = 300  # three whole row blocks of R = 8: steps with no copy at all
+    bad[3, 0], bad[77, w - 1] = -1, 1 << 30
+    ext = np.vstack([src, np.zeros((1, src.shape[1]), np.uint8)])  # row 300: zeros
+    want = _numpy_ref(ext, np.where((bad < 0) | (bad >= 300), 300, bad))
+    ts, tb = _t(src).to(dev), _t(bad).to(dev)
+    for R in (8, 32):
+        assert np.array_equal(kernels.gather_db(ts, tb, R=R).cpu().numpy(), want), R
+        assert kernels.take_index_errors(dev)
+    allbad = torch.full((20, w), 300, dtype=torch.int32, device=dev)
+    assert not kernels.gather_db(ts, allbad).any() and kernels.take_index_errors(dev)
 
 
 @pytest.mark.cuda
