@@ -13,7 +13,7 @@ Phases, each printing its own lines and its seconds:
    theirs, each shape's bytes bound and, at width 1, torch.index_select's
    time; gather_v1's heaviest shape in each wait mode; gather_v2 and
    torch.index_select (its library_ms) at take_rows, both in CUDA graphs,
-   in turn; K1 at every
+   in turn; gather_db at the object-wide shapes in CUDA graphs; K1 at every
    gather of one warm encode (tools/gather_launches.py: the 17 launches of
    a replay and a repair LT combine at t = 200*1280, recorded as they run,
    in every mode -- out=, rows, zero_index -- each bit-exact, timed, with
@@ -45,9 +45,13 @@ Phases, each printing its own lines and its seconds:
    "auto" cold; every run restores the bytes; seconds and Mb/s per arm;
 8. cli: nanorq_tpu_torch.cli.encode and .decode on an 8 MiB file at
    T=1280, decoded with the default backend and with --layout-cache (the
-   device arm), byte-compared with the file.
+   device arm), byte-compared with the file;
+9. bench: nanorq_tpu_torch.bench at K = 1000 and K = 100 with every decode
+   arm (--iters 4 --deadline 120), in this process: one line per K with
+   every key, a number or null, `dec_plan` "W" at K = 1000; its lines are
+   printed again as `[bench] ...`.
 
-Each of the paths 3-4, 6, 7 and 8 runs with the launch counts set to 0 just
+Each of the paths 3-4, 6, 7, 8 and 9 runs with the launch counts set to 0 just
 before it and read just after, and fails if a kernel it runs never launched.
 Any failure raises and the script exits non-zero.  The last line is one JSON
 object: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -247,7 +251,8 @@ def phase_parity(dev, rng, P) -> dict:
             worst = max(worst, err)
             if err:
                 raise AssertionError(f"{name} {label}: kernel differs from plain, max_abs_err={err}")
-            ms = _cuda_ms(kfn, 10 if main else 20)
+            graphed = name == "gather_db" and main  # device time: one CUDA graph of 10 launches
+            ms = graph_ms(kfn, 10) if graphed else _cuda_ms(kfn, 10 if main else 20)
             if name == "gather_xor":
                 k1_ms[label] = ms
                 _say("parity", kernel=name, shape=label.replace(" ", ""), exact=True, ms=f"{ms:.4f}")
@@ -259,6 +264,8 @@ def phase_parity(dev, rng, P) -> dict:
                     lib_ms[k1] = _cuda_ms(library[k1], 10 if main else 20)
                 extra["library_ms"] = f"{lib_ms[k1]:.4f}"
             extra["bound_ms"] = f"{bounds[k1][0]:.4f}"
+            if graphed:
+                extra.update(timing="cuda_graph", share=f"{bounds[k1][0] / ms:.3f}")
             _say("parity", kernel=name, shape=label.replace(" ", ""), exact=True,
                  ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", **extra)
             if main and name == "gather_v1":
@@ -282,7 +289,7 @@ def phase_parity(dev, rng, P) -> dict:
         b_ms, b_by = bounds[main_k1]
         report[name] = {"max_abs_err": worst, "ms": main_ms, "plain_ms": main_plain, "shape": main_shape,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": main_lib,
-                        "timing": "cuda_graph" if name == "gather_v2" else "cuda_events"}
+                        "timing": "cuda_events" if name == "gather_v1" else "cuda_graph"}
         for mode, (ms, label, k1) in sorted(modes.items()):
             _say("parity", kernel=name, mode=mode, heaviest=label.replace(" ", ""), ms=f"{ms:.4f}",
                  k1_ms=f"{k1_ms[k1]:.4f}", bound_ms=f"{bounds[k1][0]:.4f}", share=f"{bounds[k1][0] / ms:.3f}")
@@ -512,6 +519,38 @@ def phase_cli(rng) -> dict:
     return secs
 
 
+def phase_bench() -> dict:
+    """The port's bench in this process at K = 1000 and K = 100, every decode
+    arm: both lines came, every key is there, a finite number or null, the
+    main cells are numbers unless the bench's deadline cut the run, and
+    K = 1000 decodes by the dense-W plan."""
+    from nanorq_tpu_torch import bench
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--ks", "1000", "100", "--iters", "4", "--deadline", "120", "--arms"])
+    lines = [json.loads(line) for line in out.getvalue().splitlines()]
+    for line in lines:
+        print("[bench] " + json.dumps(line), flush=True)
+    if rc != 0:
+        raise AssertionError(f"the bench exited {rc}")
+    per_k = {line["K"]: line for line in lines if "K" in line}
+    if list(per_k) != [1000, 100] or "metric" not in lines[-1]:
+        raise AssertionError(f"the bench printed lines for K = {list(per_k)} and no summary after them")
+    for k, line in per_k.items():
+        for key in bench.KEYS:
+            v = line[key]  # a missing key raises
+            if not (v is None or isinstance(v, (bool, str)) or np.isfinite(v)):
+                raise AssertionError(f"bench K={k}: {key} = {v!r}")
+        main_cells = ("encode", "encode_e2e", "decode", "decode0", "decode_e2e", "e2e_device", "e2e_res",
+                      "e2e_res_host", "e2e_host")
+        if not line["partial"] and not all(line[c] and line[c] > 0 for c in main_cells):
+            raise AssertionError(f"bench K={k}: a cell is missing from a whole run: { {c: line[c] for c in main_cells} }")
+    if per_k[1000]["dec_plan"] != "W":
+        raise AssertionError(f"bench K=1000 decoded by the {per_k[1000]['dec_plan']} plan, expected the dense-W one")
+    return per_k
+
+
 def _short(name: str) -> str:
     """A profiler event's kernel name without its return type and arguments."""
     name = name.replace("(anonymous namespace)", "{anon}").split("(", 1)[0]
@@ -683,6 +722,20 @@ def main() -> None:
     _say("cli", bytes=CLI_BYTES, T=T, restored=True, launches=json.dumps(cli_launches),
          encode_mbps=_mbps(CLI_BYTES, cli_s["encode"]), decode_mbps=_mbps(CLI_BYTES, cli_s["decode"]),
          seconds=f"{time.perf_counter() - t0:.2f}")
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()  # the bench starts here
+    bench_lines = phase_bench()  # phase 9
+    bench_launches = dict(kernels.LAUNCHES)  # and ends here
+    if not all(bench_launches[n] > 0 for n in ("gather_xor", "gf2_matmul", "gf256_matmul")):
+        raise AssertionError(f"the bench missed a kernel: {bench_launches}")
+    b1000 = bench_lines[1000]  # beside phases 3, 4 and 7, in BASELINE.md's unit (the bench's arms are all cold)
+    _say("bench", ks=json.dumps(list(bench_lines)), launches=json.dumps(bench_launches),
+         encode_e2e_mbps=b1000["encode_e2e_mbps"], phase3_encode_warm_mbps=_mbps(F, enc_s[1]),
+         e2e_device_mbps=b1000["e2e_device_mbps"], phase4_device_cold_mbps=_mbps(F, dec_s[0]),
+         **{f"e2e_{arm}_mbps": b1000[f"e2e_{arm}_mbps"] for arm in ("res", "res_host", "host")},
+         **{f"phase7_{arm}_cold_mbps": _mbps(F, arm_s[f"{arm}_cold"]) for arm in ("res", "res_host", "host")},
+         seconds=f"{time.perf_counter() - t0:.2f}")
     _say("phase", name="all", seconds=f"{time.perf_counter() - t_start:.2f}")
 
     print(json.dumps({"kernels": [
@@ -691,6 +744,7 @@ def main() -> None:
          "path": "probe" if n in PROBES else "encode+decode",
          "max_abs_err": report[n]["max_abs_err"], "ms": report[n]["ms"], "plain_ms": report[n]["plain_ms"],
          "bound_ms": report[n]["bound_ms"], "bound_by": report[n]["bound_by"],
+         "share": report[n]["bound_ms"] / report[n]["ms"],
          "library_ms": report[n]["library_ms"], "shape": report[n]["shape"],
          "timing": report[n].get("timing", "cuda_graph"),  # how ms and library_ms were taken
          **({"modes": report[n]["modes"]} if "modes" in report[n] else {})}

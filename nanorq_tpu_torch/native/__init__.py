@@ -62,12 +62,14 @@ def _tmp(path: str) -> str:
     return f"{path}.{os.getpid()}.tmp"
 
 
-def _build(build_dir: str, srchash: str) -> bool:
+def _build(build_dir: str, srchash: str, arch_flags=("-march=native",)) -> bool:
+    """Compile solver.cc into build_dir.  arch_flags: the instruction-set
+    flags; ("-mno-avx2", "-mno-ssse3") builds the file's non-SIMD branches."""
     lib_path = _lib_path(build_dir)
     try:
         os.makedirs(build_dir, exist_ok=True)
         cmd = [
-            "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+            "g++", "-O3", *arch_flags, "-std=c++17", "-shared", "-fPIC",
             "-pthread", "-o", _tmp(lib_path), _SRC,
         ]
         san = _sanitize_mode()
@@ -126,116 +128,121 @@ def get_lib():
                     stacklevel=2,
                 )
                 return None
-            lib = ctypes.CDLL(lib_file)
-            i32p = ctypes.POINTER(ctypes.c_int32)
-            u8p = ctypes.POINTER(ctypes.c_uint8)
-            lib.nrq_solve.restype = ctypes.c_void_p
-            lib.nrq_solve.argtypes = [
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, i32p, i32p, u8p,
-            ]
-            for name in ("nrq_status", "nrq_hdpc_used", "nrq_i", "nrq_u"):
-                getattr(lib, name).restype = ctypes.c_int32
-                getattr(lib, name).argtypes = [ctypes.c_void_p]
-            for name in ("nrq_piv_rows", "nrq_piv_cols", "nrq_u_cols", "nrq_order",
-                         "nrq_tri_ek", "nrq_tri_ep", "nrq_ut_ek", "nrq_ut_uc"):
-                getattr(lib, name).restype = i32p
-                getattr(lib, name).argtypes = [ctypes.c_void_p]
-            for name in ("nrq_n_tri_edges", "nrq_n_ut_edges"):
-                getattr(lib, name).restype = ctypes.c_int64
-                getattr(lib, name).argtypes = [ctypes.c_void_p]
-            for name in ("nrq_uschur", "nrq_vinv"):
-                getattr(lib, name).restype = u8p
-                getattr(lib, name).argtypes = [ctypes.c_void_p]
-            lib.nrq_free.restype = None
-            lib.nrq_free.argtypes = [ctypes.c_void_p]
-            lib.nrq_tinv_chunks.restype = None
-            lib.nrq_tinv_chunks.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32]
-            lib.nrq_tinv_conj_chunks.restype = None
-            lib.nrq_tinv_conj_chunks.argtypes = [u8p, i32p, ctypes.c_int32, ctypes.c_int32]
-            lib.nrq_heavy_closure.restype = None
-            lib.nrq_heavy_closure.argtypes = [
-                ctypes.c_int64, i32p, i32p, ctypes.c_int32, ctypes.c_int32, u8p,
-            ]
-            lib.nrq_heavy_zone_order.restype = ctypes.c_int32
-            lib.nrq_heavy_zone_order.argtypes = [
-                ctypes.c_int64, i32p, i32p, ctypes.c_int32, ctypes.c_int32, u8p, i32p,
-            ]
-            i64p = ctypes.POINTER(ctypes.c_int64)
-            lib.nrq_splice_rows.restype = None
-            lib.nrq_splice_rows.argtypes = [
-                ctypes.c_int32, i64p, i32p, i64p, i64p, i32p, i64p, i32p,
-            ]
-            u64p = ctypes.POINTER(ctypes.c_uint64)
-            lib.nrq_host_repair.restype = None
-            lib.nrq_host_repair.argtypes = [
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32,
-                i32p, i64p, i32p, i64p, i32p, u8p,
-                i64p, u64p, i32p, i64p, i32p, i64p, i32p, u64p, i32p,
-                ctypes.c_int32,
-            ]
-            lib.nrq_res_rinv.restype = None
-            lib.nrq_res_rinv.argtypes = [
-                ctypes.c_int32, i32p, i32p, i64p, u8p, i64p, u8p, i32p,
-                ctypes.c_int32,
-            ]
-            lib.nrq_host_residual.restype = None
-            lib.nrq_host_residual.argtypes = [
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                i32p, i32p, i64p, i32p,
-                i64p, u8p, i64p, u64p, i64p, u64p, i64p, u64p, i32p,
-                ctypes.c_int32,
-            ]
-            u32p = ctypes.POINTER(ctypes.c_uint32)
-            lib.nrq_lt_init.restype = None
-            lib.nrq_lt_init.argtypes = [u32p, u32p, u32p, u32p, u32p, ctypes.c_int32]
-            lib.nrq_lt_row.restype = ctypes.c_int32
-            lib.nrq_lt_row.argtypes = [
-                ctypes.c_uint32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, i32p,
-            ]
-            lib.nrq_host_repair2.restype = None
-            lib.nrq_host_repair2.argtypes = [
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32,
-                i64p, i32p, u8p, i32p,
-                i64p, u32p, i64p, u64p, i32p, i64p, i32p, i64p, u64p, i32p,
-                ctypes.c_int32,
-            ]
-            u16p = ctypes.POINTER(ctypes.c_uint16)
-            lib.nrq_tri_plan.restype = ctypes.c_void_p
-            lib.nrq_tri_plan.argtypes = [
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, i32p, i32p,
-                i32p, ctypes.c_int32, i32p, ctypes.c_int32,
-                ctypes.c_double, ctypes.c_double, ctypes.c_int32, i32p, ctypes.c_int32,
-            ]
-            lib.nrq_tri_fill.restype = ctypes.c_void_p
-            lib.nrq_tri_fill.argtypes = [
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, i32p, i32p,
-                i32p, ctypes.c_int32, i32p,
-            ]
-            lib.nrq_tp_counts.restype = i32p
-            lib.nrq_tp_counts.argtypes = [ctypes.c_void_p]
-            for name in ("nrq_tp_status", "nrq_tp_nseg", "nrq_tp_nranges"):
-                getattr(lib, name).restype = ctypes.c_int32
-                getattr(lib, name).argtypes = [ctypes.c_void_p]
-            for name in ("nrq_tp_posmap", "nrq_tp_seg_meta", "nrq_tp_range_meta"):
-                getattr(lib, name).restype = i32p
-                getattr(lib, name).argtypes = [ctypes.c_void_p]
-            lib.nrq_tp_tinv.restype = u8p
-            lib.nrq_tp_tinv.argtypes = [ctypes.c_void_p]
-            lib.nrq_tp_ix.restype = u16p
-            lib.nrq_tp_ix.argtypes = [ctypes.c_void_p]
-            lib.nrq_tp_ix_len.restype = ctypes.c_int64
-            lib.nrq_tp_ix_len.argtypes = [ctypes.c_void_p]
-            lib.nrq_tp_free.restype = None
-            lib.nrq_tp_free.argtypes = [ctypes.c_void_p]
-            _lib = lib
+            _lib = _bind(lib_file)
         except Exception:
             _lib = None
         return _lib
+
+
+def _bind(lib_file: str):
+    """Load a built library and declare its functions' types."""
+    lib = ctypes.CDLL(lib_file)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.nrq_solve.restype = ctypes.c_void_p
+    lib.nrq_solve.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, i32p, i32p, u8p,
+    ]
+    for name in ("nrq_status", "nrq_hdpc_used", "nrq_i", "nrq_u"):
+        getattr(lib, name).restype = ctypes.c_int32
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    for name in ("nrq_piv_rows", "nrq_piv_cols", "nrq_u_cols", "nrq_order",
+                 "nrq_tri_ek", "nrq_tri_ep", "nrq_ut_ek", "nrq_ut_uc"):
+        getattr(lib, name).restype = i32p
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    for name in ("nrq_n_tri_edges", "nrq_n_ut_edges"):
+        getattr(lib, name).restype = ctypes.c_int64
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    for name in ("nrq_uschur", "nrq_vinv"):
+        getattr(lib, name).restype = u8p
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    lib.nrq_free.restype = None
+    lib.nrq_free.argtypes = [ctypes.c_void_p]
+    lib.nrq_tinv_chunks.restype = None
+    lib.nrq_tinv_chunks.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32]
+    lib.nrq_tinv_conj_chunks.restype = None
+    lib.nrq_tinv_conj_chunks.argtypes = [u8p, i32p, ctypes.c_int32, ctypes.c_int32]
+    lib.nrq_heavy_closure.restype = None
+    lib.nrq_heavy_closure.argtypes = [
+        ctypes.c_int64, i32p, i32p, ctypes.c_int32, ctypes.c_int32, u8p,
+    ]
+    lib.nrq_heavy_zone_order.restype = ctypes.c_int32
+    lib.nrq_heavy_zone_order.argtypes = [
+        ctypes.c_int64, i32p, i32p, ctypes.c_int32, ctypes.c_int32, u8p, i32p,
+    ]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.nrq_splice_rows.restype = None
+    lib.nrq_splice_rows.argtypes = [
+        ctypes.c_int32, i64p, i32p, i64p, i64p, i32p, i64p, i32p,
+    ]
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.nrq_host_repair.restype = None
+    lib.nrq_host_repair.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32,
+        i32p, i64p, i32p, i64p, i32p, u8p,
+        i64p, u64p, i32p, i64p, i32p, i64p, i32p, u64p, i32p,
+        ctypes.c_int32,
+    ]
+    lib.nrq_res_rinv.restype = None
+    lib.nrq_res_rinv.argtypes = [
+        ctypes.c_int32, i32p, i32p, i64p, u8p, i64p, u8p, i32p,
+        ctypes.c_int32,
+    ]
+    lib.nrq_host_residual.restype = None
+    lib.nrq_host_residual.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        i32p, i32p, i64p, i32p,
+        i64p, u8p, i64p, u64p, i64p, u64p, i64p, u64p, i32p,
+        ctypes.c_int32,
+    ]
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.nrq_lt_init.restype = None
+    lib.nrq_lt_init.argtypes = [u32p, u32p, u32p, u32p, u32p, ctypes.c_int32]
+    lib.nrq_lt_row.restype = ctypes.c_int32
+    lib.nrq_lt_row.argtypes = [
+        ctypes.c_uint32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, i32p,
+    ]
+    lib.nrq_host_repair2.restype = None
+    lib.nrq_host_repair2.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32,
+        i64p, i32p, u8p, i32p,
+        i64p, u32p, i64p, u64p, i32p, i64p, i32p, i64p, u64p, i32p,
+        ctypes.c_int32,
+    ]
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    lib.nrq_tri_plan.restype = ctypes.c_void_p
+    lib.nrq_tri_plan.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, i32p, i32p,
+        i32p, ctypes.c_int32, i32p, ctypes.c_int32,
+        ctypes.c_double, ctypes.c_double, ctypes.c_int32, i32p, ctypes.c_int32,
+    ]
+    lib.nrq_tri_fill.restype = ctypes.c_void_p
+    lib.nrq_tri_fill.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, i32p, i32p,
+        i32p, ctypes.c_int32, i32p,
+    ]
+    lib.nrq_tp_counts.restype = i32p
+    lib.nrq_tp_counts.argtypes = [ctypes.c_void_p]
+    for name in ("nrq_tp_status", "nrq_tp_nseg", "nrq_tp_nranges"):
+        getattr(lib, name).restype = ctypes.c_int32
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    for name in ("nrq_tp_posmap", "nrq_tp_seg_meta", "nrq_tp_range_meta"):
+        getattr(lib, name).restype = i32p
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    lib.nrq_tp_tinv.restype = u8p
+    lib.nrq_tp_tinv.argtypes = [ctypes.c_void_p]
+    lib.nrq_tp_ix.restype = u16p
+    lib.nrq_tp_ix.argtypes = [ctypes.c_void_p]
+    lib.nrq_tp_ix_len.restype = ctypes.c_int64
+    lib.nrq_tp_ix_len.argtypes = [ctypes.c_void_p]
+    lib.nrq_tp_free.restype = None
+    lib.nrq_tp_free.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def native_available() -> bool:

@@ -29,8 +29,8 @@
 
 #include <sys/mman.h>
 
-#if defined(__AVX2__) || defined(__SSSE3__)
-#include <immintrin.h>
+#if defined(__AVX2__) || defined(__SSSE3__) || defined(__SSE__)
+#include <immintrin.h>  // __SSE__ alone: _mm_prefetch (prefetch_row)
 #endif
 
 namespace {

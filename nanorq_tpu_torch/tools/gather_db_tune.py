@@ -4,8 +4,8 @@
 
 Shapes: `lt_class`, the widest LT class of the K = 1000 encoder over an
 object (C_ext[1072, 256000], idx (566, 8)); `take_rows`, its pivot gather
-(D[2048, 256000], idx (1280, 1)); and the six of the probe driver's `db`
-table (tools/gather_probe.py, sources of 52 MB-1.05 GB).  For each, through
+(D[2048, 256000], idx (1280, 1)); and the six of the `db` table of
+tools/gather_probe.py (sources of 52 MB-1.05 GB).  For each, through
 the wrappers: gather_db at R = 8, 16, 32 bit-exact against the plain
 version, its mean time over `--iters` launches in one CUDA graph, with
 gather_v1 mode 2 and K1 beside it, the bytes bound and gather_db's share of

@@ -121,3 +121,43 @@ def test_native_build_temp_names_are_per_process(monkeypatch):
         names.append((native._tmp(lib), native._tmp(lib + ".srchash")))
     assert names[0][0] != names[1][0] and names[0][1] != names[1][1]
     assert all(n.startswith(lib) and n.endswith(".tmp") for pair in names for n in pair)
+
+
+def test_solver_without_simd_solves_as_the_default_build(tmp_path, monkeypatch):
+    """solver.cc compiled with -mno-avx2 -mno-ssse3 in place of -march=native
+    (its non-SIMD branches, what a host without those units builds) gives the
+    K = 100 solve and one block's host-arm repair that the default build
+    gives."""
+    from nanorq_tpu_torch import native
+    from nanorq_tpu_torch.precode.matrix import binary_rows
+
+    if not native_available():
+        pytest.skip("needs g++")
+    assert native._build(str(tmp_path), native._src_hash(), arch_flags=("-mno-avx2", "-mno-ssse3"))
+    plain = native._bind(native._lib_path(str(tmp_path)))
+    assert native.get_lib() is not None and plain._name != native.get_lib()._name
+
+    def run():
+        P = params_init(100)
+        st = native.solve_native(P, binary_rows(P))
+        rng = np.random.default_rng(100)
+        data = rng.integers(0, 256, 100 * T, dtype=np.uint8)
+        enc = Encoder(data.size, T, Al=8, Z=1, device="cpu")
+        gaps = np.nonzero(rng.random(100) < 0.06)[0]
+        keep = np.setdiff1d(np.arange(100), gaps)
+        rep = np.arange(100, 100 + gaps.size + 3)
+        dec = Decoder(enc.oti_common(), enc.oti_scheme_specific(), device="cpu")
+        out = np.zeros(data.size, np.uint8)
+        io = MemoryIO(out)
+        dec.add_symbols(data.reshape(100, T)[keep], [make_tag(0, int(e)) for e in keep], io)
+        dec.add_symbols(enc.encode_batch(0, rep, MemoryIO(data)), [make_tag(0, int(e)) for e in rep], io)
+        tcache.clear_decoder_cache()
+        assert gaps.size and dec.repair_all(io, backend="host") and np.array_equal(out, data)
+        return st
+
+    want = run()
+    monkeypatch.setattr(native, "_lib", plain)
+    monkeypatch.setattr(native, "_lt_tables_set", False)  # the LT tables live in each library
+    got = run()
+    for f in ("piv_rows", "piv_cols", "u_cols", "order", "hdpc_used", "uschur_sel", "vinv", "tri_edges", "ut_edges"):
+        assert _same(getattr(got, f), getattr(want, f)), f
