@@ -49,10 +49,26 @@ Phases, each printing its own lines and its seconds:
 9. bench: nanorq_tpu_torch.bench at K = 1000 and K = 100 with every decode
    arm (--iters 4 --deadline 120), in this process: one line per K with
    every key, a number or null, `dec_plan` "W" at K = 1000; its lines are
-   printed again as `[bench] ...`.
+   printed again as `[bench] ...`;
+10. mesh: the object of phase 3 and the deliveries of phase 4 over lanes
+   (nanorq_tpu_torch/parallel: a lane is a card, a stream of its own and
+   pinned staging) -- over `make_mesh()` (every visible card, a lane each) and
+   over 1, 2 and 4 lanes dealt round-robin over the cards (on one card: lanes
+   of cuda:0).  `batch.generate(mesh=)` + `batch.repair_symbols(mesh=)` three
+   times in turn with the unsharded path (`mesh=None`), host clock between
+   synchronisations, the first round of a mesh apart (it pins its staging),
+   every result held bit for bit against phase 3's repair symbols; the upload
+   alone (`shard_width`) with every row and with the K live rows, beside the
+   unsharded path's pageable copy, the host's staging copy into pinned memory
+   and the copy from pinned memory to the card; the four sharded calls of one warm encode
+   on 1 and on 4 lanes with a wait after each; `repair_all(backend="device", mesh=)` cold
+   on `make_mesh()`, then warm with `mesh=None` and 4 lanes in turn, twice,
+   every run restoring the object; `parallel._dryrun.run(4, device)` in both
+   modes; no gather index flagged on any card.  One `[mesh]` line holds the
+   times beside the card's name and power limit.
 
-Each of the paths 3-4, 6, 7, 8 and 9 runs with the launch counts set to 0 just
-before it and read just after, and fails if a kernel it runs never launched.
+Each of the paths 3-4, 6, 7, 8, 9 and 10 runs with the launch counts set to 0
+just before it and read just after, and fails if a kernel it runs never launched.
 Any failure raises and the script exits non-zero.  The last line is one JSON
 object: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports no JAX and nothing of the JAX package: the host pieces it needs come
@@ -382,10 +398,15 @@ def _deliveries(seed: int) -> list:
     return out
 
 
-def _decode_once(enc, data, reps, deliveries, dev, backend: str, around=contextlib.nullcontext):
-    """A fresh Decoder fed with `deliveries`, then repair_all(backend) inside
-    the context `around()`, timed (ingestion excluded): (restored object,
-    seconds, per-block patterns)."""
+def _sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _decode_once(enc, data, reps, deliveries, dev, backend: str, around=contextlib.nullcontext, mesh=None):
+    """A fresh Decoder fed with `deliveries`, then repair_all(backend, mesh)
+    inside the context `around()`, timed (ingestion excluded): (restored
+    object, seconds, per-block patterns)."""
     from nanorq_tpu_torch.codec.api import Decoder
     from nanorq_tpu_torch.host import MemoryIO, make_tag
 
@@ -397,10 +418,10 @@ def _decode_once(enc, data, reps, deliveries, dev, backend: str, around=contextl
         dec.add_symbols(payloads[sbn * K + keep], [make_tag(sbn, int(e)) for e in keep], io)
         dec.add_symbols(reps[sbn][: rep_esis.size], [make_tag(sbn, int(e)) for e in rep_esis], io)
     preps = [dec._repair_prepare(sbn) for sbn in range(Z)]
-    torch.cuda.synchronize()
+    _sync_all()
     with around():
         t0 = time.perf_counter()
-        if not dec.repair_all(io, backend=backend):
+        if not dec.repair_all(io, backend=backend, mesh=mesh):
             raise AssertionError(f"repair_all({backend!r}) reported unrecovered blocks")
         secs = time.perf_counter() - t0
     return out, secs, preps
@@ -551,6 +572,107 @@ def phase_bench() -> dict:
     return per_k
 
 
+def phase_mesh(enc, batch, data, reps, dev, deliveries, smi: str) -> dict:
+    """Phase 10: phase 3's object and phase 4's deliveries over lanes."""
+    from nanorq_tpu_torch import bench as tbench
+    from nanorq_tpu_torch.codec import batch as tbatch
+    from nanorq_tpu_torch.codec import cache as tcache
+    from nanorq_tpu_torch.parallel import _dryrun
+    from nanorq_tpu_torch.parallel import mesh as lanes
+
+    n = torch.cuda.device_count()
+    meshes = {"cards": lanes.make_mesh(), **{str(k): tbench.lanes_mesh(k, dev) for k in (1, 2, 4)}}
+    configs = [("none", None), *meshes.items()]
+
+    def flagged() -> bool:
+        return any([m.take_index_errors() for m in meshes.values()])
+
+    enc_s = {name: [] for name, _ in configs}
+    for rnd in range(3):  # in turn; a mesh's first round pins its staging
+        for name, mesh in configs:
+            batch.C = None
+            _sync_all()
+            t0 = time.perf_counter()
+            tbatch.generate(batch, dev, mesh=mesh)
+            got = tbatch.repair_symbols(batch, N_REPAIR, dev, mesh=mesh)  # on the host when it returns
+            enc_s[name].append(time.perf_counter() - t0)
+            if sorted(got) != list(range(Z)) or not all(np.array_equal(got[b], reps[b]) for b in range(Z)):
+                raise AssertionError(f"encode over mesh {name!r} (round {rnd}): repair symbols differ from phase 3's")
+            del got
+    batch.C = None
+    if flagged():
+        raise AssertionError("a gather of the mesh encode met an index outside its source")
+
+    # the upload alone, on 4 lanes: every row of D against the K live ones, and
+    # the unsharded path's one copy from pageable memory; then the two halves
+    # of a lane's upload apart, the host's staging copy of the live rows into
+    # pinned memory and the copy from there to the card; each twice, in turn
+    pinned = torch.empty((K, Z * T), dtype=torch.uint8, pin_memory=True)
+    up_s = {}
+    for _ in range(2):
+        for name, fn in (("pageable_all_rows", lambda: torch.from_numpy(batch.D).to(dev)),
+                         ("lanes4_all_rows", lambda: lanes.shard_width(batch.D, meshes["4"], block=T)),
+                         ("lanes4_live_rows", lambda: lanes.shard_width(batch.D, meshes["4"], block=T, live_rows=K)),
+                         ("host_staging_live_rows", lambda: pinned.copy_(torch.from_numpy(batch.D)[:K])),
+                         ("pinned_copy_live_rows", lambda: pinned.to(dev, non_blocking=True))):
+            _sync_all()
+            t0 = time.perf_counter()
+            x = fn()
+            _sync_all()
+            up_s.setdefault(name, []).append(time.perf_counter() - t0)
+            del x
+    del pinned
+
+    # where a warm encode's time goes, on 1 and on 4 lanes: its four sharded
+    # calls with a wait after each (so nothing overlaps), twice
+    ds = tcache.encoder_schedule(enc.P.Kp)
+    isis = np.arange(enc.P.Kp, enc.P.Kp + N_REPAIR, dtype=np.uint32)
+    step_ms = {}
+
+    def timed(key: str, fn):
+        _sync_all()
+        t0 = time.perf_counter()
+        got = fn()
+        _sync_all()
+        step_ms.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    for _ in range(2):
+        for name in ("1", "4"):
+            mesh = meshes[name]
+            Dsh = timed(f"{name}_shard_width", lambda: lanes.shard_width(batch.D, mesh, block=T, live_rows=K))
+            C = timed(f"{name}_replay", lambda: lanes.replay_sharded(ds, Dsh, mesh))
+            sym = timed(f"{name}_lt", lambda: lanes.lt_sharded(C, isis, enc.P, mesh))
+            timed(f"{name}_download", lambda: sym.host_blocks(T, Z, N_REPAIR))
+            del Dsh, C, sym
+
+    tcache.clear_decoder_cache()
+    dec_s = {"cards_cold": [], "none_warm": [], "4_warm": []}
+    for key, mesh in [("cards_cold", meshes["cards"])] + 2 * [("none_warm", None), ("4_warm", meshes["4"])]:
+        out, s, _ = _decode_once(enc, data, reps, deliveries, dev, "device", mesh=mesh)
+        if not np.array_equal(out, data):
+            raise AssertionError(f"decode {key} did not restore the object")
+        dec_s[key].append(s)
+    if flagged():
+        raise AssertionError("a gather of the mesh decode met an index outside its source")
+
+    t0 = time.perf_counter()
+    for mode in ("full", "structured"):
+        _dryrun.run(4, dev, mode)  # checks its own gathers' flags
+    dry_s = time.perf_counter() - t0
+
+    fmt = lambda xs: [round(x, 4) for x in xs]  # noqa: E731
+    line = {"card": smi, "count": n, "bytes": int(data.size),
+            "encode_s": {"none": fmt(enc_s["none"]),
+                         **{f"{name}_first": fmt(enc_s[name][:1]) for name in meshes},
+                         **{f"{name}_warm": fmt(enc_s[name][1:]) for name in meshes}},
+            "upload_s": {k: fmt(v) for k, v in up_s.items()},
+            "encode_step_ms": {k: [round(x, 2) for x in v] for k, v in step_ms.items()},
+            "decode_s": {k: fmt(v) for k, v in dec_s.items()}, "dryrun_s": round(dry_s, 2)}
+    print("[mesh] " + json.dumps(line), flush=True)
+    return line
+
+
 def _short(name: str) -> str:
     """A profiler event's kernel name without its return type and arguments."""
     name = name.replace("(anonymous namespace)", "{anon}").split("(", 1)[0]
@@ -690,7 +812,7 @@ def main() -> None:
          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / (1 << 30):.2f}")
     phase_profile(enc, batch, data, reps, dev, deliveries)
     _say("phase", name="checks", seconds=f"{time.perf_counter() - t0:.2f}")
-    del batch
+    batch.C = None  # the host matrix stays for phase 10
 
     t0 = time.perf_counter()
     kernels.reset_launches()  # the probe path starts here
@@ -736,11 +858,25 @@ def main() -> None:
          **{f"e2e_{arm}_mbps": b1000[f"e2e_{arm}_mbps"] for arm in ("res", "res_host", "host")},
          **{f"phase7_{arm}_cold_mbps": _mbps(F, arm_s[f"{arm}_cold"]) for arm in ("res", "res_host", "host")},
          seconds=f"{time.perf_counter() - t0:.2f}")
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()  # the lanes start here
+    mesh_line = phase_mesh(enc, batch, data, reps, dev, deliveries, smi)  # phase 10
+    mesh_launches = dict(kernels.LAUNCHES)  # and end here
+    if not all(mesh_launches[n] > 0 for n in ("gather_xor", "gf2_matmul", "gf256_matmul")):
+        raise AssertionError(f"the mesh paths missed a kernel: {mesh_launches}")
+    _say("mesh", launches=json.dumps(mesh_launches), encode_none_mbps=_mbps(F, min(mesh_line["encode_s"]["none"])),
+         encode_4_warm_mbps=_mbps(F, min(mesh_line["encode_s"]["4_warm"])),
+         decode_none_warm_mbps=_mbps(F, min(mesh_line["decode_s"]["none_warm"])),
+         decode_4_warm_mbps=_mbps(F, min(mesh_line["decode_s"]["4_warm"])),
+         seconds=f"{time.perf_counter() - t0:.2f}")
+    del batch
     _say("phase", name="all", seconds=f"{time.perf_counter() - t_start:.2f}")
 
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": PORTED[n][0], "replaces": PORTED[n][1],
          "launches": (probe_launches if n in PROBES else main_launches)[n],
+         "launches_mesh": mesh_launches[n],
          "path": "probe" if n in PROBES else "encode+decode",
          "max_abs_err": report[n]["max_abs_err"], "ms": report[n]["ms"], "plain_ms": report[n]["plain_ms"],
          "bound_ms": report[n]["bound_ms"], "bound_by": report[n]["bound_by"],

@@ -1,6 +1,6 @@
 """Benchmark of the port, mirroring the reference's benchmark.c semantics.
 
-    python -m nanorq_tpu_torch.bench [--ks K ...] [--iters N] [--arms] [--deadline S] [--device cuda]
+    python -m nanorq_tpu_torch.bench [--ks K ...] [--iters N] [--arms] [--mesh N] [--deadline S] [--device cuda]
 
 The counterpart of the JAX package's `bench.py`, with its function names and
 JSON keys.  Reference harness (benchmark.c): an in-memory random object of
@@ -36,6 +36,11 @@ Cells per K:
                  backend (`e2e_device`, `e2e_res`, `e2e_res_host`,
                  `e2e_host`), interleaved round-robin, and `e2e_auto_ok`:
                  whether "auto" came within 10% of the best of them
+- with `--mesh N` (off by default), two cells more per K, on N lanes dealt
+  round-robin over the visible cards (`parallel.mesh`; on `--device cpu`, N
+  CPU lanes): encode_e2e_mesh, encode_e2e through `generate(mesh=)` and
+  `repair_symbols(mesh=)`, and e2e_device_mesh, decode_e2e through
+  `repair_all(backend="device", mesh=)`, in turn with the other arms
 
 Timing: device-resident cells are timed between CUDA events over `iters`
 back-to-back calls after one warm-up call (`"timing": "events"`; on
@@ -74,6 +79,7 @@ from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.io.ioctx import MemoryIO
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
 from nanorq_tpu_torch.ops.replay import device_arrays, replay
+from nanorq_tpu_torch.parallel.mesh import make_mesh
 from nanorq_tpu_torch.precode.device_schedule import _FREEZE_AFTER, compile_device
 from nanorq_tpu_torch.precode.matrix import binary_rows
 from nanorq_tpu_torch.precode.solver import solve_state
@@ -98,6 +104,7 @@ GRID = (100, 500, 1000, 5000, 10000, 50000)  # the reference Makefile's K grid
 RUN_ORDER = (1000, 50000, 100, 500, 5000, 10000)  # the headline K and the costliest first
 OBJECT_BYTES = 256 << 20  # the reference's object (benchmark.c:11)
 ARMS = ("auto", "device", "res", "res_host", "host")
+MESH_ARM = "device_mesh"  # decode_e2e's arm under --mesh
 RES_MAX_K = 16384  # the residual arms above it would pay a multi-second elimination
 MIN_LAUNCHES = 20  # a timed region is at least this many launch overheads ...
 MAX_CALLS = 1 << 14  # ... or the cell is null once it would take more calls than this
@@ -106,6 +113,8 @@ KEYS = ("encode", "encode_mbps", "encode_replay", "encode_e2e", "encode_e2e_mbps
         "encode_fresh", "decode0", "decode", "agg", "solve_ms", "fresh_ms", "dec_solve_ms", "dec_plan",
         "batch_MB", "decode_e2e", "decode_e2e_mbps", "agg_e2e", "e2e_auto_ok", "vs_ref", "fresh_vs_ref",
         *(k for arm in ARMS[1:] for k in (f"e2e_{arm}", f"e2e_{arm}_mbps")))
+# and under --mesh N
+MESH_KEYS = ("mesh_lanes", "encode_e2e_mesh", "encode_e2e_mesh_mbps", "e2e_device_mesh", "e2e_device_mesh_mbps")
 
 
 def log(msg: str) -> None:
@@ -255,7 +264,7 @@ def e2e_object(K, T, nblocks, dev, seed: int = 7):
     return data, enc, per_block
 
 
-def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",)):
+def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",), mesh=None):
     """End-to-end fresh-pattern decode through the public path: nblocks blocks
     with DISTINCT ~6% loss patterns + 5% overhead, repaired by ONE
     Decoder.repair_all call per arm and round.  The timed region is exactly
@@ -264,7 +273,8 @@ def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",)):
     (benchmark.c:143-151).  Every per-pattern decoder memo is cleared each
     round; the output is compared with the object each time.  Arms are
     interleaved round-robin so that drift of the shared host's speed falls on
-    every arm alike.  Returns {arm: seconds}, the best round of each."""
+    every arm alike.  The arm "device_mesh" is "device" over `mesh`.
+    Returns {arm: seconds}, the best round of each."""
     data, enc, per_block = e2e_object(K, T, nblocks, dev)
     payloads = data.reshape(nblocks * K, T)
     out = np.zeros(data.size, np.uint8)  # one buffer, like the reference's run loop
@@ -284,7 +294,8 @@ def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",)):
             dec, io = fresh_decoder()
             cc.clear_decoder_cache()
             ok = []
-            dt = clock.wall(lambda: ok.append(dec.repair_all(io, backend=arm)))
+            kw = {"backend": "device", "mesh": mesh} if arm == MESH_ARM else {"backend": arm}
+            dt = clock.wall(lambda: ok.append(dec.repair_all(io, **kw)))
             _gate(ok[0], f"decode_e2e repair failed ({arm})")
             _gate(np.array_equal(out, data), f"decode_e2e verification FAILED ({arm})")
             best[arm] = min(best[arm], dt)
@@ -293,9 +304,11 @@ def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",)):
     return best
 
 
-def bench_K(K, T, blocks, iters, rng, dev, clock: Clock, dec_blocks=0) -> dict:
+def bench_K(K, T, blocks, iters, rng, dev, clock: Clock, dec_blocks=0, mesh=None) -> dict:
     """The cells of one K but decode_e2e; a cell the deadline cuts stays null."""
     r = dict.fromkeys(KEYS)
+    if mesh is not None:
+        r.update(dict.fromkeys(MESH_KEYS), mesh_lanes=mesh.size)
     P = params_init(K)
     t = blocks * T
     payload = K * T * blocks
@@ -347,14 +360,22 @@ def bench_K(K, T, blocks, iters, rng, dev, clock: Clock, dec_blocks=0) -> dict:
     obj = tbatch.ObjectBatch(enc=enc, sbns=list(range(blocks)), Ks=np.full(blocks, K, np.int64), D=D)
     n_repair = max(1, K // 5)
 
-    def encode_e2e():
+    def encode_e2e(mesh=None):
         obj.C = None
-        tbatch.generate(obj, dev)
-        tbatch.repair_symbols(obj, n_repair, dev)  # fetched to the host
+        tbatch.generate(obj, dev, mesh=mesh)
+        return tbatch.repair_symbols(obj, n_repair, dev, mesh=mesh)  # fetched to the host
 
-    encode_e2e()  # warm: the repair plan
-    e2e_s = min(clock.wall(encode_e2e) for _ in range(max(2, min(iters, 5))))
+    want = encode_e2e()  # warm: the repair plan
+    rounds = max(2, min(iters, 5))
+    e2e_s = min(clock.wall(encode_e2e) for _ in range(rounds))
     r["encode_e2e"], r["encode_e2e_mbps"], r["encode_e2e_repair"] = _gbps(payload, e2e_s), _mbps(payload, e2e_s), n_repair
+    if mesh is not None and not clock.expired():
+        got = encode_e2e(mesh)  # warm: the lanes' plans and the first pinning
+        _gate(all(np.array_equal(got[b], want[b]) for b in range(blocks)), "encode_e2e_mesh verification FAILED")
+        mesh_s = min(clock.wall(lambda: encode_e2e(mesh)) for _ in range(rounds))
+        _gate(not mesh.take_index_errors(), "encode_e2e_mesh: a gather met an index outside its source")
+        r["encode_e2e_mesh"], r["encode_e2e_mesh_mbps"] = _gbps(payload, mesh_s), _mbps(payload, mesh_s)
+    del want
     obj.C = None
 
     # --- decode at ~6% loss + 5% overhead: patched solve (host, cached) + the
@@ -450,8 +471,16 @@ def default_blocks(K: int, T: int) -> int:
     return min(Z_MAX, max(1, OBJECT_BYTES // (K * T)))
 
 
+def lanes_mesh(n: int, dev: torch.device):
+    """n lanes dealt round-robin over the visible cards; n CPU lanes on the CPU."""
+    if dev.type != "cuda":
+        return make_mesh([dev] * n)
+    return make_mesh([torch.device("cuda", i % torch.cuda.device_count()) for i in range(n)])
+
+
 def run_grid(args, ks, results, dev, clock: Clock, fields: dict) -> None:
     rng = np.random.default_rng(0)
+    mesh = lanes_mesh(args.mesh, dev) if args.mesh else None
     overhead = clock.measure_overhead()
     fmt = lambda v: "n/a" if v is None else f"{v:.2f}"  # noqa: E731
     for K in ks:
@@ -461,7 +490,7 @@ def run_grid(args, ks, results, dev, clock: Clock, fields: dict) -> None:
         blocks = min(args.blocks or default_blocks(K, args.T), Z_MAX)
         iters = args.iters if K <= 5000 else max(4, args.iters // 4)
         dec_blocks = min(args.dec_blocks, default_blocks(K, args.T))
-        r = bench_K(K, args.T, blocks, iters, rng, dev, clock, dec_blocks=dec_blocks)
+        r = bench_K(K, args.T, blocks, iters, rng, dev, clock, dec_blocks=dec_blocks, mesh=mesh)
         if not args.no_pipe and not clock.expired():
             # decode_e2e: fresh-pattern decode through repair_all, per-pattern
             # work inside the timed region, for EVERY K; per arm at K in
@@ -470,8 +499,14 @@ def run_grid(args, ks, results, dev, clock: Clock, fields: dict) -> None:
             arms = ("auto",)
             if args.arms or K in (1000, 50000):
                 arms = ARMS if K <= RES_MAX_K else tuple(a for a in ARMS if not a.startswith("res"))
-            secs = bench_decode_e2e(K, args.T, nb, 3, dev, clock, arms=arms)
+            if mesh is not None:
+                arms += (MESH_ARM,)
+            secs = bench_decode_e2e(K, args.T, nb, 3, dev, clock, arms=arms, mesh=mesh)
             nbytes = K * args.T * nb
+            if mesh is not None:
+                arms = arms[:-1]
+                s_mesh = secs.pop(MESH_ARM)
+                r["e2e_device_mesh"], r["e2e_device_mesh_mbps"] = _gbps(nbytes, s_mesh), _mbps(nbytes, s_mesh)
             r["decode_e2e"], r["decode_e2e_mbps"] = _gbps(nbytes, secs["auto"]), _mbps(nbytes, secs["auto"])
             for arm in arms[1:]:
                 r[f"e2e_{arm}"], r[f"e2e_{arm}_mbps"] = _gbps(nbytes, secs[arm]), _mbps(nbytes, secs[arm])
@@ -536,6 +571,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ks", type=int, nargs="*", default=list(GRID), help="default: the reference Makefile's 6-K grid")
     ap.add_argument("--no-pipe", action="store_true", help="skip the fresh-pattern decode_e2e measurement")
     ap.add_argument("--arms", action="store_true", help="decode_e2e per backend at every K")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="also time encode_e2e and the device decode_e2e over N lanes (0 = off)")
     ap.add_argument("--deadline", type=float, default=1500.0, help="wall-clock seconds for the whole run")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)

@@ -7,7 +7,9 @@ port's Decoder on `--device` (default cuda, which raises when torch sees no
 card).  Blocks are repaired by `repair_all` with the default backend (env
 NANORQ_DECODE_BACKEND, else "auto"); `--layout-cache` forces the device arm,
 since the persisted decode layouts exist only for device plans.  `--mesh
-auto` is not ported yet.
+auto` splits the repair over all visible cards (`parallel.mesh.auto_mesh`,
+which forces the device arm); with one card, or on `--device cpu`, there is
+nothing to split and it is `off`.
 """
 
 import argparse
@@ -15,9 +17,10 @@ import os
 import struct
 import sys
 
-from nanorq_tpu_torch.codec.api import _NO_MESH, SYM_ERR, Decoder
+from nanorq_tpu_torch.codec.api import SYM_ERR, Decoder
 from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.io.ioctx import FileIO
+from nanorq_tpu_torch.parallel.mesh import auto_mesh
 from nanorq_tpu_torch.precode.device_schedule import load_layout_cache, save_layout_cache
 
 
@@ -29,12 +32,11 @@ def main(argv=None) -> int:
                     help="persist the per-K' frozen decode layouts across invocations "
                     "(forces the device arm)")
     ap.add_argument("--mesh", choices=("auto", "off"), default="off",
-                    help="'auto' (several GPUs) is not ported yet and raises")
+                    help="'auto' splits the work over all visible GPUs; with one, or on the CPU, it is 'off'")
     ap.add_argument("--device", default="cuda", help="torch device of the payload math")
     args = ap.parse_args(argv)
-    if args.mesh == "auto":
-        raise NotImplementedError(_NO_MESH)
     dev = resolve(args.device)
+    mesh = auto_mesh() if args.mesh == "auto" and dev.type == "cuda" else None
 
     lay_path = None
     if args.layout_cache:
@@ -61,7 +63,7 @@ def main(argv=None) -> int:
             for sbn in range(dec.num_blocks):
                 print(f"block {sbn} is {dec.block_symbols(sbn)} packets, "
                       f"lost {dec.num_missing(sbn)}, have {dec.num_repair(sbn)} repair")
-            ok = dec.repair_all(io, backend="device" if lay_path is not None else None)
+            ok = dec.repair_all(io, mesh=mesh, backend="device" if lay_path is not None else None)
             if not ok:
                 for sbn in range(dec.num_blocks):
                     if dec.num_missing(sbn):

@@ -7,7 +7,9 @@ The counterpart of `nanorq_tpu.cli.encode`, with the same wire format
 records), the same flags and the same `random.Random(seed)` drop simulation,
 so one seed gives the same stream from either package.  The object encodes
 through `nanorq_tpu_torch.codec.batch` on `--device` (default cuda, which
-raises when torch sees no card).  `--mesh auto` is not ported yet.
+raises when torch sees no card).  `--mesh auto` splits the object over all
+visible cards (`parallel.mesh.auto_mesh`); with one card, or on `--device cpu`,
+there is nothing to split and it is `off`.
 """
 
 import argparse
@@ -15,12 +17,13 @@ import random
 import struct
 import sys
 
-from nanorq_tpu_torch.codec.api import _NO_MESH, Encoder
+from nanorq_tpu_torch.codec.api import Encoder
 from nanorq_tpu_torch.codec.batch import generate, load_object, repair_symbols, source_symbol
 from nanorq_tpu_torch.codec.cache import warm_encoder_cache
 from nanorq_tpu_torch.codec.oti import make_tag
 from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.io.ioctx import FileIO
+from nanorq_tpu_torch.parallel.mesh import auto_mesh
 
 
 def main(argv=None) -> int:
@@ -35,12 +38,11 @@ def main(argv=None) -> int:
                     help="persist the per-K' encoder schedule to disk (a warm start skips "
                     "the schedule solve)")
     ap.add_argument("--mesh", choices=("auto", "off"), default="off",
-                    help="'auto' (several GPUs) is not ported yet and raises")
+                    help="'auto' splits the work over all visible GPUs; with one, or on the CPU, it is 'off'")
     ap.add_argument("--device", default="cuda", help="torch device of the payload math")
     args = ap.parse_args(argv)
-    if args.mesh == "auto":
-        raise NotImplementedError(_NO_MESH)
     dev = resolve(args.device)
+    mesh = auto_mesh() if args.mesh == "auto" and dev.type == "cuda" else None
 
     rng = random.Random(args.seed)
     with FileIO(args.filename) as io:
@@ -48,14 +50,14 @@ def main(argv=None) -> int:
         if args.schedule_cache:
             warm_encoder_cache(enc.P.Kp, args.schedule_cache)
         batch = load_object(enc, io)
-        generate(batch, dev)
+        generate(batch, dev, mesh=mesh)
         drops = []
         for sbn in range(enc.num_blocks):
             num_esi = enc.block_symbols(sbn)
             kept = [e for e in range(num_esi) if rng.random() * 100.0 >= args.loss]
             drops.append((kept, num_esi - len(kept)))
         max_rep = max(d for _, d in drops) + args.overhead if drops else 0
-        rep = repair_symbols(batch, max_rep, dev) if max_rep else {}
+        rep = repair_symbols(batch, max_rep, dev, mesh=mesh) if max_rep else {}
         with open(args.output, "wb") as oh:
             oh.write(struct.pack("<QI", enc.oti_common(), enc.oti_scheme_specific()))
             for b, sbn in enumerate(batch.sbns):

@@ -21,10 +21,14 @@ the port's torch code on the explicit `device` the object was built with:
     cold ones on "res_host" up to K' = NANORQ_RES_HOST_MAX (256), else on
     "host" -- the JAX package's rule, unchanged.
 
-Not ported yet, and raising NotImplementedError: `mesh=` (ROADMAP Queue 1
-item 10).
+`mesh=` (a `parallel.mesh.Mesh`) splits the device work over the mesh's
+lanes, each a device with a stream of its own: the encoder's replay and LT
+combine by payload width, the decoder's stacked W batches by block, its
+structured plans block by block in turn.  A mesh forces the decoder's device
+arm, and its lanes' devices do the work, whatever `device` the object has.
 """
 
+import itertools
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -41,11 +45,11 @@ from nanorq_tpu_torch.native import host_repair_shared, host_residual_flat, nati
 from nanorq_tpu_torch.ops import wpath
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
 from nanorq_tpu_torch.ops.replay import device_arrays, replay
+from nanorq_tpu_torch.parallel import mesh as lanes
 from nanorq_tpu_torch.rfc.params import Params, params_init
 from nanorq_tpu_torch.rfc.tables import K_MAX, MAX_TRANSFER, Z_MAX
 from nanorq_tpu_torch.utils import stats
 
-_NO_MESH = "mesh= is not ported yet (ROADMAP Queue 1 item 10, multi-GPU)"
 _NO_FACTOR = ('backend "res" needs the native solver\'s canonical factorization, '
               "which is unavailable here; no other arm is taken in its place")
 BACKENDS = ("auto", "device", "host", "res", "res_host")
@@ -283,20 +287,34 @@ class Encoder(_CodecBase):
         return b
 
     def generate_symbols(self, sbn: int, io: IOContext, mesh=None) -> bool:
-        """Compute the block's intermediate symbols C [L, T] on the device."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        """Compute the block's intermediate symbols C [L, T] on the device.
+
+        With `mesh`, the payload width is split over its lanes (the replay is
+        a stream of row operations, columnwise independent) and C stays
+        sharded.  For a whole object prefer codec.batch, which lays the blocks
+        side by side on the width axis before it splits."""
         b = self._load(io, sbn)
         if b.C is None:
             ds = _cache.encoder_schedule(self.P.Kp)
-            b.C = replay(device_arrays(ds, self.device), _upload(b.D, self.device))
+            if mesh is not None:
+                lanes.check_mesh(mesh)
+                Dp = lanes.pad_width(b.D, int(np.prod(mesh.devices.shape)))
+                b.C = lanes.replay_sharded(ds, lanes.shard_width(Dp, mesh, live_rows=b.K), mesh)
+            else:
+                b.C = replay(device_arrays(ds, self.device), _upload(b.D, self.device))
         return True
 
     def encode_batch(self, sbn: int, esis: np.ndarray, io: IOContext, mesh=None) -> np.ndarray:
         """Encode many symbols of one block -> [n, T] uint8 (numpy).  Source
-        ESIs come from the loaded rows, repair ESIs from the LT combine."""
+        ESIs come from the loaded rows, repair ESIs from the LT combine.
+
+        With `mesh`, the combine runs on the lanes that hold the sharded C
+        (generated sharded if not there yet).  Where C and `mesh` do not go
+        together the combine is the unsharded one on `self.device`: a C
+        sharded over another mesh, or met with no mesh, is first gathered
+        there (`Sharded.gather`), and an unsharded C stays where it is."""
         if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+            lanes.check_mesh(mesh)
         esis = np.asarray(esis, dtype=np.int64)
         b = self._load(io, sbn)
         T = self.scheme.T
@@ -306,10 +324,15 @@ class Encoder(_CodecBase):
             out[src_mask] = b.D[esis[src_mask]]
         rep = np.nonzero(~src_mask)[0]
         if rep.size:
-            self.generate_symbols(sbn, io)
+            self.generate_symbols(sbn, io, mesh=mesh)
             isis = (esis[rep] + (self.P.Kp - b.K)).astype(np.uint32)
-            sym = lt_combine(b.C, lt_plan(isis, self.P, self.device))
-            out[rep] = sym[: rep.size, :T].cpu().numpy()
+            if isinstance(b.C, lanes.Sharded) and b.C.mesh is not mesh:
+                b.C = b.C.gather(self.device)
+            if isinstance(b.C, lanes.Sharded):
+                out[rep] = lanes.lt_sharded(b.C, isis, self.P, mesh).host(rep.size)[:, :T]
+            else:
+                sym = lt_combine(b.C, lt_plan(isis, self.P, self.device))
+                out[rep] = sym[: rep.size, :T].cpu().numpy()
         return out
 
     def encode(self, esi: int, sbn: int, io: IOContext) -> np.ndarray:
@@ -321,17 +344,36 @@ class Encoder(_CodecBase):
 
 class _HostResult:
     """Lazy host copy of one device result: the first np.asarray() of any
-    of its views waits for the device and fetches the whole tensor once."""
+    of its views waits for the device and fetches the whole tensor once.
+    `lane`: the mesh lane whose stream produced it, and then downloads it."""
 
-    __slots__ = ("dev", "_np")
+    __slots__ = ("dev", "lane", "_np")
 
-    def __init__(self, dev: torch.Tensor):
+    def __init__(self, dev: torch.Tensor, lane=None):
         self.dev = dev
+        self.lane = lane
         self._np = None
 
     def numpy(self) -> np.ndarray:
         if self._np is None:
-            self._np = self.dev.cpu().numpy()
+            self._np = self.dev.cpu().numpy() if self.lane is None else lanes.fetch([(self.lane, self.dev)])[0]
+        return self._np
+
+
+class _ShardedResult:
+    """Lazy host copy of a stack of blocks split over a mesh: the first
+    np.asarray() of any view downloads every lane's run, each on its stream,
+    and waits once.  numpy()[j] is block j of the whole stack."""
+
+    __slots__ = ("sharded", "_np")
+
+    def __init__(self, sharded):
+        self.sharded = sharded
+        self._np = None
+
+    def numpy(self) -> list:
+        if self._np is None:
+            self._np = [blk for part in self.sharded.host_parts() if part is not None for blk in part]
         return self._np
 
 
@@ -569,14 +611,22 @@ class Decoder(_CodecBase):
         isis[P.Kp :] = rep_isis[gaps.size :]
         return gaps, isis, overhead
 
-    def _repair_D(self, sbn: int, gaps: np.ndarray, overhead: int, M_pad: int) -> np.ndarray:
+    def _repair_D(self, sbn: int, gaps: np.ndarray, overhead: int, M_pad: int, out=None) -> np.ndarray:
         """The patched payload matrix D [M_pad, T]: received sources in their
         rows, repair payloads in the gap and overhead slots (reference
         fill_symbol_matrix_gaps, nanorq.c:549-565).  M_pad is canonical given
-        (K', overhead), so D can be staged before the pattern is solved."""
+        (K', overhead), so D can be staged before the pattern is solved.
+
+        `out`: a staging array [>= K' + overhead rows, T] to build D's
+        leading rows in, whatever it held (the rows past them are zero)."""
         b = self._block(sbn)
         P = self.P
-        D = np.zeros((M_pad, self.scheme.T), np.uint8)
+        if out is None:
+            D = np.zeros((M_pad, self.scheme.T), np.uint8)
+        else:
+            D = out
+            # with b.D, rows [0, K) are all written below: received, or a gap
+            D[b.K if b.D is not None else 0 :] = 0
         if b.D is not None:
             have = np.nonzero(b.got)[0]
             D[have] = b.D[have]
@@ -589,11 +639,12 @@ class Decoder(_CodecBase):
         """Stacked launch for same-(kind, M_pad) WSchedule blocks.
 
         items: [(sbn, gaps, overhead, plan, D_host|None)] -> [(sbn, gaps,
-        view)]; the views share one device result, fetched once."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        view)]; the views share one device result, fetched once.  With
+        `mesh`, the stack is split over its lanes (`_repair_launch_lanes`)."""
         stats.count("repair_batch_launch")
         stats.count("repair_batch_blocks", len(items))
+        if mesh is not None:
+            return self._repair_launch_lanes(items, mesh)
         plans = [p for _, _, _, p, _ in items]
         M_pad = plans[0].M_pad
         D = np.zeros((len(items), M_pad, self.scheme.T), np.uint8)
@@ -607,6 +658,45 @@ class Decoder(_CodecBase):
         else:
             out = wpath.w_apply_gf256_batch(_upload(wpath.w_stack_gf256(plans), dev), _upload(D, dev))
         res = _HostResult(out)
+        return [(it[0], it[1], _HostView(res, j)) for j, it in enumerate(items)]
+
+    def _repair_launch_lanes(self, items, mesh):
+        """`_repair_launch_batch` over a mesh: the stacked block axis is the
+        split one.  Contiguous runs of blocks are dealt to the lanes
+        (`parallel.mesh.deal`), the bits / rows / W stacks the same way; each
+        lane stages its run in pinned memory, uploads and launches on its own
+        stream, and one result object downloads every lane's rows at once.
+
+        The JAX package pads the block count to a multiple of the device
+        count, because its `device_put` demands equal shards; here runs may
+        be uneven and a lane past the blocks is skipped.  A lane's payload
+        stack holds rows [0, live) and one zero row, live = K' + the largest
+        overhead, not M_pad rows: every row past `live` is zero, so a
+        gathered row at or past it reads the zero row and W's columns there
+        are cut -- the same product from half the upload."""
+        plans = [p for _, _, _, p, _ in items]
+        M_pad, T = plans[0].M_pad, self.scheme.T
+        live = min(self.P.Kp + max(ov for _, _, ov, _, _ in items), M_pad - 1)
+
+        def fill(host, lo, hi):
+            h = host.numpy()
+            for j, (sbn, gaps, ov, _p, Dh) in enumerate(items[lo:hi]):
+                if Dh is not None:
+                    h[j] = Dh[: live + 1]
+                else:
+                    self._repair_D(sbn, gaps, ov, M_pad, out=h[j])
+
+        D = lanes.shard_stack(len(items), mesh, (live + 1, T), fill)
+        # every operand is per block: nothing cached per device to prepare
+        if plans[0].Wbits is not None:
+            bits, rows = wpath.w_stack_gf2(plans)
+            rows = np.minimum(rows, live)[..., None]
+            out = D.each(None, lambda _, d, b, r: wpath.w_apply_gf2_batch(b, r, d),
+                         lanes.shard_blocks(bits, mesh), lanes.shard_blocks(rows, mesh))
+        else:  # column `live` stays: it multiplies the zero row, and the stack goes to K3 as it is
+            W = wpath.w_stack_gf256(plans)[:, :, : live + 1]
+            out = D.each(None, lambda _, d, w: wpath.w_apply_gf256_batch(w, d), lanes.shard_blocks(W, mesh))
+        res = _ShardedResult(out)
         return [(it[0], it[1], _HostView(res, j)) for j, it in enumerate(items)]
 
     def _repair_launch(self, sbn: int, gaps: np.ndarray, overhead: int, ds, D_dev=None):
@@ -623,6 +713,23 @@ class Decoder(_CodecBase):
             C = replay(device_arrays(ds, self.device), D_dev)
             sym = lt_combine(C, lt_plan(gaps.astype(np.uint32), self.P, self.device))
         return _HostView(_HostResult(sym[: gaps.size]))
+
+    def _repair_launch_on(self, lane, sbn: int, gaps: np.ndarray, overhead: int, ds):
+        """`_repair_launch` on a mesh lane: what is cached per device is
+        fetched first, on the current stream; then the block's live rows are
+        staged in pinned memory, uploaded and launched on the lane's stream."""
+        if isinstance(ds, _cache.WSchedule):
+            ds.staged(lane.device)
+            run = ds.apply
+        else:
+            arr = device_arrays(ds, lane.device)
+            plan = lt_plan(gaps.astype(np.uint32), self.P, lane.device)
+            run = lambda D: lt_combine(replay(arr, D), plan)  # noqa: E731
+        D_dev = lanes.stage(lane, (ds.M_pad, self.scheme.T),
+                            lambda host: self._repair_D(sbn, gaps, overhead, ds.M_pad, out=host.numpy()),
+                            rows=self.P.Kp + overhead)
+        with lane.on():
+            return _HostView(_HostResult(run(D_dev)[: gaps.size], lane))
 
     def _repair_finish(self, io: IOContext, sbn: int, gaps: np.ndarray, sym) -> bool:
         b = self._block(sbn)
@@ -874,12 +981,13 @@ class Decoder(_CodecBase):
     def _repair_pipeline(self, max_workers: int | None = None, mesh=None, backend: str | None = None,
                          io: IOContext | None = None):
         """Route every gap block to an arm and launch it; (ok, launched) as in
-        nanorq_tpu (see the module docstring for the backends)."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        nanorq_tpu (see the module docstring for the backends).  A mesh forces
+        the device arm: the host arms are single-node."""
         backend = backend or os.environ.get("NANORQ_DECODE_BACKEND", "auto")
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
+        if mesh is not None:
+            lanes.check_mesh(mesh)
         work, ok = [], True
         for sbn in range(self.num_blocks):
             prep = self._repair_prepare(sbn)
@@ -889,12 +997,12 @@ class Decoder(_CodecBase):
                 work.append((sbn, *prep))
         if not work:
             return ok, []
+        if mesh is not None or backend == "device" or not native_available():
+            dok, launched = self._repair_pipeline_device(work, max_workers, mesh)
+            return ok and dok, launched
         if backend == "res":
             rok, launched = self._repair_residual_batch(work)
             return ok and rok, launched
-        if backend == "device" or not native_available():
-            dok, launched = self._repair_pipeline_device(work, max_workers)
-            return ok and dok, launched
 
         rhost_work, host_work, dev_work = [], [], []
         if backend == "host":
@@ -937,19 +1045,21 @@ class Decoder(_CodecBase):
     def _repair_pipeline_device(self, work, max_workers: int | None = None, mesh=None):
         """Device arm: per-pattern plans solved in one worker thread while
         this thread launches each block as its solve lands; WSchedule
-        blocks of one (kind, M_pad) are stacked into batches."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        blocks of one (kind, M_pad) are stacked into batches.  Under a mesh
+        a batch is split over the lanes, even one of a single block, and
+        structured plans launch block by block on the lanes in turn.  This
+        thread alone launches: the kernels' launch counts are plain state."""
         stats.count("repair_device_blocks", len(work))
         ok, launched, pend = True, [], {}
+        turn = None if mesh is None else itertools.cycle(mesh.lanes)
 
         def flush(key):
             items = pend.pop(key, [])
-            if len(items) == 1:
+            if len(items) == 1 and mesh is None:
                 s, g, ov, ds, _ = items[0]
                 launched.append((s, g, self._repair_launch(s, g, ov, ds)))
             elif items:
-                launched.extend(self._repair_launch_batch(items))
+                launched.extend(self._repair_launch_batch(items, mesh))
 
         with ThreadPoolExecutor(max_workers=max_workers or 1) as ex:
             futs = [(s, g, ov, ex.submit(_cache.decoder_plan, self.P, isis, ov))
@@ -964,8 +1074,10 @@ class Decoder(_CodecBase):
                     pend.setdefault(key, []).append((sbn, gaps, ov, ds, None))
                     if len(pend[key]) >= self._BATCH_FLUSH:
                         flush(key)
-                else:
+                elif mesh is None:
                     launched.append((sbn, gaps, self._repair_launch(sbn, gaps, ov, ds)))
+                else:
+                    launched.append((sbn, gaps, self._repair_launch_on(next(turn), sbn, gaps, ov, ds)))
             for key in list(pend):
                 flush(key)
         return ok, launched
@@ -979,8 +1091,8 @@ class Decoder(_CodecBase):
         replay their cached compiled plans on device, pipelined (SURVEY.md
         §7 hard-part 5): per-pattern host solves run in a worker thread
         while device replays dispatch as each solve lands, W-plan blocks
-        stacked into batched dispatches.  Pass a jax.sharding.Mesh to shard
-        those batches over its first axis (per-block independence needs no
+        stacked into batched dispatches.  Pass a `parallel.mesh.Mesh` to split
+        those batches over its lanes (per-block independence needs no
         collectives; forces the device arm).  `backend` overrides the arm:
         "auto" (default, env NANORQ_DECODE_BACKEND) / "res" / "device" /
         "host".

@@ -20,6 +20,7 @@ from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.io.ioctx import IOContext
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
 from nanorq_tpu_torch.ops.replay import device_arrays, replay
+from nanorq_tpu_torch.parallel import mesh as lanes
 
 
 @dataclass
@@ -28,7 +29,7 @@ class ObjectBatch:
     sbns: list[int]
     Ks: np.ndarray  # per-block source symbol counts
     D: np.ndarray  # [M_pad, Z*T] host payload matrix
-    C: object = None  # device intermediates [L, Z*T]
+    C: object = None  # device intermediates [L, Z*T]: a tensor, or a parallel.mesh.Sharded
 
 
 def load_object(enc: Encoder, io: IOContext, sbns=None) -> ObjectBatch:
@@ -46,11 +47,22 @@ def load_object(enc: Encoder, io: IOContext, sbns=None) -> ObjectBatch:
     return ObjectBatch(enc=enc, sbns=sbns, Ks=Ks, D=D)
 
 
-def generate(batch: ObjectBatch, device) -> torch.Tensor:
-    """One structured replay for the whole object: batch.C [L, Z*T] on `device`."""
-    dev = resolve(device)
+def generate(batch: ObjectBatch, device, mesh=None):
+    """One structured replay for the whole object: batch.C [L, Z*T] on
+    `device`.  With `mesh`, the width is split over its lanes on whole blocks
+    where there are enough of them, each lane uploads the payload rows of its
+    blocks (the rows past the largest K are zero by construction) and
+    replays them on its own stream, and batch.C stays sharded.  The JAX
+    package pads the width to a multiple of the device count first
+    (`pad_width`: its shards must be equal); lanes take unequal shards, so the
+    object's matrix is not copied to pad it."""
     ds = _cache.encoder_schedule(batch.enc.P.Kp)
-    batch.C = replay(device_arrays(ds, dev), torch.from_numpy(batch.D).to(dev))
+    if mesh is not None:
+        Dsh = lanes.shard_width(batch.D, mesh, block=batch.enc.symbol_size, live_rows=int(batch.Ks.max()))
+        batch.C = lanes.replay_sharded(ds, Dsh, mesh)
+    else:
+        dev = resolve(device)
+        batch.C = replay(device_arrays(ds, dev), torch.from_numpy(batch.D).to(dev))
     return batch.C
 
 
@@ -59,16 +71,24 @@ def source_symbol(batch: ObjectBatch, b: int, esi: int) -> np.ndarray:
     return batch.D[esi, b * T : (b + 1) * T]
 
 
-def repair_symbols(batch: ObjectBatch, n_repair: int, device) -> dict[int, np.ndarray]:
+def repair_symbols(batch: ObjectBatch, n_repair: int, device, mesh=None) -> dict[int, np.ndarray]:
     """Repair payloads of every block: {batch index b: [n_repair, T]}.
 
     Repair ISIs are K-independent (arange(K, K+n) + K'-K == arange(K', K'+n)
-    for every block length), so one plan and one combine cover the object."""
-    dev = resolve(device)
+    for every block length), so one plan and one combine cover the object.
+    With `mesh`, the combine runs on the lanes that hold the sharded batch.C
+    (the layout of generate(mesh=)).  A batch.C that does not go with `mesh`
+    is combined unsharded on `device`, a sharded one gathered there first."""
+    if mesh is not None:
+        lanes.check_mesh(mesh)
     if batch.C is None:
-        generate(batch, dev)
+        generate(batch, device, mesh=mesh)
     T = batch.enc.symbol_size
     P = batch.enc.P
-    plan = lt_plan(np.arange(P.Kp, P.Kp + n_repair, dtype=np.uint32), P, dev)
-    sym = lt_combine(batch.C, plan)[:n_repair].cpu().numpy()
+    isis = np.arange(P.Kp, P.Kp + n_repair, dtype=np.uint32)
+    if isinstance(batch.C, lanes.Sharded) and batch.C.mesh is not mesh:
+        batch.C = batch.C.gather(device)
+    if isinstance(batch.C, lanes.Sharded):
+        return lanes.lt_sharded(batch.C, isis, P, mesh).host_blocks(T, len(batch.sbns), n_repair)
+    sym = lt_combine(batch.C, lt_plan(isis, P, batch.C.device))[:n_repair].cpu().numpy()
     return {b: sym[:, b * T : (b + 1) * T] for b in range(len(batch.sbns))}

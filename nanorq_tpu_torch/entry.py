@@ -36,3 +36,17 @@ def step(arr: dict, plan, D: torch.Tensor) -> torch.Tensor:
 def entry(device):
     """(fn, example_args) of the flagship step on `device`."""
     return step, flagship(device)
+
+
+def dryrun_multichip(n_lanes: int, device) -> None:
+    """The sharded codec over n lanes of `device`, every gate bit-exact:
+    counterpart of `__graft_entry__.dryrun_multichip`.  Blocks are the
+    scaling axis: the mesh splits the payload width (blocks) while the
+    schedule tensors are cached per device, and the hot path needs no
+    collectives (parallel/mesh.py).  Both modes of parallel/_dryrun.py run in
+    this process: the lanes of a mesh may share one device, so no device
+    count has to be forced in a fresh interpreter."""
+    from nanorq_tpu_torch.parallel import _dryrun
+
+    for mode in ("full", "structured"):
+        _dryrun.run(n_lanes, device, mode)

@@ -271,6 +271,18 @@ def _gf_tables(dev: torch.device):
     return tabs
 
 
+def prepare(device: torch.device) -> None:
+    """Create what the wrappers keep per CUDA device (the index flag, K3's
+    tables) now, on the current stream.  They are otherwise made at the first
+    launch, on whatever stream that runs on: a caller that launches on
+    several streams of one device calls this first and has each stream wait
+    for the current one."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _flag(_INDEX_ERR, dev)
+        _gf_tables(dev)
+
+
 # K3's two forms: the companion-bit product on K2's four-Russians core, and
 # the direct log/exp design; tools/matmul_forms.py times the rule's form at
 # every main-path shape.

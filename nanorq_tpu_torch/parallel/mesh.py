@@ -1,0 +1,346 @@
+"""Multi-device scaling: blocks split over the lanes of a mesh (counterpart of
+`nanorq_tpu.parallel.mesh`).
+
+RaptorQ source blocks are fully independent, and every payload kernel is
+elementwise along the payload width (blocks laid side by side, t = B*T).  The
+JAX package shards that width over a 1-D 'blocks' mesh with one `shard_map`:
+every device runs the same replay / LT program on its own slice, the schedule
+arrays replicated, no collectives.  Here the same layout is a tuple of
+**lanes**.  A lane is a device plus, on CUDA, a stream of its own: every lane
+uploads its slice from pinned memory on its stream (`non_blocking`), runs the
+port's unsharded function on it there, and downloads its slice of the result
+into pinned memory; one host thread starts all of it and waits once.  Several
+lanes may name one device: two lanes of one card overlap the upload of one
+slice with the kernels of another, two lanes of two cards are two GPUs.
+
+"Replicated" schedule tensors are what the unsharded code caches already, per
+device: `device_arrays(ds, dev)`, `lt_plan(isis, P, dev)`,
+`WSchedule.staged(dev)`.  So the sharded functions take the schedule (or the
+ISIs and parameters, or the WSchedule) and fetch each lane's copy, where the
+JAX ones take arrays placed beforehand.
+
+Nothing here falls back: a CUDA lane without a card raises (`device.resolve`),
+and a failed pin, stream or launch raises where it happens.
+"""
+
+import contextlib
+
+import numpy as np
+import torch
+
+from nanorq_tpu_torch.device import resolve
+from nanorq_tpu_torch.ops import kernels
+from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
+from nanorq_tpu_torch.ops.replay import device_arrays, replay
+
+
+class Lane:
+    """One shard's place: a device and, on CUDA, a stream of its own."""
+
+    __slots__ = ("device", "stream")
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device=device) if device.type == "cuda" else None
+
+    @contextlib.contextmanager
+    def on(self):
+        """Inside, torch allocates and launches on this lane's device and
+        stream.  The stream first waits for the device's current stream: the
+        tensors cached per device (schedules, plans, the kernels' tables and
+        flags) are uploaded there."""
+        if self.stream is None:
+            yield
+            return
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            yield
+
+
+class Mesh:
+    """An ordered tuple of lanes over the 1-D axis "blocks".  `devices` is an
+    object array of the lanes' torch devices, so that call sites read as the
+    JAX ones do (`int(np.prod(mesh.devices.shape))`)."""
+
+    axis_names = ("blocks",)
+
+    def __init__(self, lanes):
+        self.lanes = tuple(lanes)
+        if not self.lanes:
+            raise ValueError("a mesh needs at least one lane")
+        self.devices = np.empty(len(self.lanes), object)
+        self.devices[:] = [lane.device for lane in self.lanes]
+
+    @property
+    def size(self) -> int:
+        return len(self.lanes)
+
+    @property
+    def shape(self) -> dict:
+        return {"blocks": self.size}
+
+    def synchronize(self) -> None:
+        """Wait for every lane's stream."""
+        for lane in self.lanes:
+            if lane.stream is not None:
+                lane.stream.synchronize()
+
+    def take_index_errors(self) -> bool:
+        """Whether a gather on any CUDA device of the mesh met an index
+        outside its source since the last call; joins the lanes first, then
+        reads each device's flag once."""
+        self.synchronize()
+        cuda = {lane.device for lane in self.lanes if lane.stream is not None}
+        return any([kernels.take_index_errors(dev) for dev in sorted(cuda, key=str)])
+
+
+def check_mesh(mesh) -> None:
+    """Refuse a `mesh=` argument that is no Mesh of this package (a JAX mesh,
+    say) before any work is split over it."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh: expected a nanorq_tpu_torch.parallel.mesh.Mesh, got {type(mesh).__name__}")
+
+
+def make_mesh(devices=None, axis: str = "blocks") -> Mesh:
+    """A mesh with one lane per entry of `devices` (default: every visible
+    CUDA device).  An entry may repeat: each is a lane of its own.  A CUDA
+    device that torch cannot see raises; nothing stands in for it."""
+    if axis != "blocks":
+        raise ValueError(f"the only mesh axis is 'blocks', got {axis!r}")
+    if devices is None:
+        resolve("cuda")  # raises where torch sees no card
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devs = [resolve(d) for d in devices]
+    for dev in {d for d in devs if d.type == "cuda"}:
+        kernels.prepare(dev)
+    return Mesh(Lane(d) for d in devs)
+
+
+def auto_mesh() -> Mesh | None:
+    """A mesh over all visible cards, or None when there is at most one (a
+    single device needs no split).  What the CLIs' --mesh auto resolves to."""
+    return make_mesh() if torch.cuda.device_count() > 1 else None
+
+
+def pad_width(D: np.ndarray, n_dev: int) -> np.ndarray:
+    """Zero-pad the width (payload) axis up to a multiple of n_dev; zero
+    columns are exact no-ops under every GF kernel."""
+    t = D.shape[1]
+    tp = -(-t // n_dev) * n_dev
+    if tp == t:
+        return D
+    out = np.zeros((D.shape[0], tp), D.dtype)
+    out[:, :t] = D
+    return out
+
+
+def deal(count: int, n: int) -> list[tuple[int, int]]:
+    """`count` items in order as n contiguous runs [(lo, hi)], the first
+    count % n one longer; runs past the items are empty (lo == hi)."""
+    q, r = divmod(count, n)
+    cuts = np.concatenate([[0], np.cumsum([q + (i < r) for i in range(n)])])
+    return [(int(a), int(b)) for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def shard_ranges(t: int, n: int, block: int | None = None) -> list[tuple[int, int]]:
+    """The column range of each of n lanes over a width t, in order.
+
+    Cut on whole blocks (multiples of `block`) where the width holds at least
+    n of them: a lane then owns whole source blocks.  Else on multiples of 16
+    bytes where there are n such units, so that every shard keeps the kernels'
+    16-byte lanes (a shard of another width runs them byte by byte, which is
+    right and slow).  Else byte by byte, and lanes past the width stay empty.
+    Shards need not be equal: an absent column is as much a no-op as a zero
+    one."""
+    if block and t % block == 0 and t // block >= n:
+        unit = block
+    elif t >= 16 * n:
+        unit = 16
+    else:
+        unit = 1
+    return [(min(lo * unit, t), min(hi * unit, t)) for lo, hi in deal(-(-t // unit), n)]
+
+
+def stage(lane: Lane, shape: tuple, fill, dtype=torch.uint8, rows: int | None = None) -> torch.Tensor:
+    """A tensor of `shape` on the lane's device whose leading `rows` rows
+    (default: all) are what `fill(host)` writes into the host staging tensor
+    [rows, *shape[1:]]; the rows past them are zeroed on the device.
+
+    On a CUDA lane the staging is pinned and the copy is started on the lane's
+    stream without waiting (PyTorch keeps a pinned block from reuse until the
+    copies that read it are done).  A CPU lane's tensor is its own staging."""
+    live = shape[0] if rows is None else min(rows, shape[0])
+    if lane.stream is None:
+        x = torch.empty(shape, dtype=dtype)
+        fill(x[:live])
+        x[live:] = 0
+        return x
+    host = torch.empty((live, *shape[1:]), dtype=dtype, pin_memory=True)
+    fill(host)
+    with lane.on():
+        x = torch.empty(shape, dtype=dtype, device=lane.device)
+        x[:live].copy_(host, non_blocking=True)
+        if live < shape[0]:
+            x[live:].zero_()
+    return x
+
+
+def fetch(pairs) -> list[np.ndarray]:
+    """Host copies of contiguous tensors, each on its lane: every download is
+    started on its lane's stream into a pinned destination, then one wait per
+    stream.  pairs: [(lane, tensor)]."""
+    out = []
+    for lane, x in pairs:
+        if lane.stream is None:
+            out.append(x)
+            continue
+        with torch.cuda.stream(lane.stream):
+            h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            h.copy_(x, non_blocking=True)
+        out.append(h)
+    for lane in {lane for lane, _ in pairs}:
+        if lane.stream is not None:
+            lane.stream.synchronize()
+    return [h.numpy() for h in out]
+
+
+class Sharded:
+    """One array split along `axis` over a mesh: `parts[i]` is lane i's
+    tensor (None for an empty lane) and `ranges[i]` its [lo, hi) along the
+    axis.  The parts live on their lanes' devices and were produced on their
+    lanes' streams: run more work on them through `each`, and bring them to
+    the host with `host*`."""
+
+    def __init__(self, mesh: Mesh, parts: list, ranges: list, axis: int):
+        self.mesh, self.parts, self.ranges, self.axis = mesh, parts, ranges, axis
+
+    def each(self, prepare, run, *others: "Sharded") -> "Sharded":
+        """run(prepare(lane.device), part, *other parts) on every lane that
+        holds a part, on its stream.  `prepare` (or None: run gets None)
+        fetches what is cached per device and runs for every lane before the
+        first launch, on the current stream, which each lane then waits for.
+        `others` are split as this array is."""
+        for o in others:
+            if o.mesh is not self.mesh or o.ranges != self.ranges:
+                raise ValueError("arrays that are not split alike")
+        ready = [None if x is None or prepare is None else prepare(lane.device)
+                 for lane, x in zip(self.mesh.lanes, self.parts)]
+        parts = []
+        for i, (lane, x) in enumerate(zip(self.mesh.lanes, self.parts)):
+            if x is None:
+                parts.append(None)
+                continue
+            with lane.on():
+                parts.append(run(ready[i], x, *(o.parts[i] for o in others)))
+        return Sharded(self.mesh, parts, self.ranges, self.axis)
+
+    def host_parts(self, rows: int | None = None) -> list:
+        """Each lane's part on the host (None for an empty lane): every
+        download on its lane's stream into pinned memory, one wait at the
+        end.  `rows` cuts the leading axis first (width-sharded arrays)."""
+        held = [(lane, x if rows is None else x[:rows])
+                for lane, x in zip(self.mesh.lanes, self.parts) if x is not None]
+        got = iter(fetch(held))
+        return [None if x is None else next(got) for x in self.parts]
+
+    def host(self, rows: int | None = None) -> np.ndarray:
+        """The whole array on the host, the parts joined along the axis."""
+        parts = [p for p in self.host_parts(rows) if p is not None]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=self.axis)
+
+    def host_blocks(self, T: int, n: int, rows: int | None = None) -> dict[int, np.ndarray]:
+        """Of a width-sharded array: {b: [rows, T]} for the blocks b < n of
+        width T laid side by side.  A block that lies in one lane's part is a
+        view of that download; one that straddles a cut is joined."""
+        parts = self.host_parts(rows)
+        out = {}
+        for b in range(n):
+            lo, hi = b * T, (b + 1) * T
+            pieces = [p[:, max(lo, a) - a : min(hi, e) - a]
+                      for p, (a, e) in zip(parts, self.ranges) if p is not None and a < hi and lo < e]
+            out[b] = pieces[0] if len(pieces) == 1 else np.concatenate(pieces, axis=1)
+        return out
+
+    def gather(self, device) -> torch.Tensor:
+        """The whole array as one tensor on `device`: waits for the lanes,
+        then copies every part there and joins them (an explicit re-placing,
+        for a caller that goes on without the mesh)."""
+        dev = resolve(device)
+        self.mesh.synchronize()
+        parts = [p for p in self.parts if p is not None]
+        for p in parts:  # allocated on a lane's stream, read from here on by the current one
+            if p.is_cuda:
+                p.record_stream(torch.cuda.current_stream(p.device))
+        return torch.cat([p.to(dev) for p in parts], dim=self.axis)
+
+
+def shard_width(D: np.ndarray, mesh: Mesh, block: int | None = None, live_rows: int | None = None) -> Sharded:
+    """Place a host payload matrix [rows, t] with its width split over the
+    mesh: lane i holds the columns `shard_ranges(t, n, block)[i]`, uploaded
+    on its stream from a pinned staging copy of that (strided) column range.
+    The staging copy is host work of the whole matrix, inside whatever clock
+    runs around this call.
+
+    `live_rows`: rows at or past it are known to be zero (an encoder's D
+    holds K payload rows of M_pad); they are neither staged nor uploaded but
+    zeroed on the device."""
+    check_mesh(mesh)
+    src = torch.from_numpy(D)
+    ranges = shard_ranges(D.shape[1], mesh.size, block)
+    live = D.shape[0] if live_rows is None else live_rows
+    parts = [None if lo == hi else
+             stage(lane, (D.shape[0], hi - lo), lambda h, lo=lo, hi=hi: h.copy_(src[: h.shape[0], lo:hi]), rows=live)
+             for lane, (lo, hi) in zip(mesh.lanes, ranges)]
+    return Sharded(mesh, parts, ranges, axis=1)
+
+
+def shard_stack(n_items: int, mesh: Mesh, shape: tuple, fill, dtype=torch.uint8) -> Sharded:
+    """A stack [n_items, *shape] split over the mesh on its leading axis, in
+    contiguous runs (`deal`): lane i's run [lo, hi) is staged by
+    `fill(host [hi - lo, *shape], lo, hi)` and uploaded on its stream.  Runs
+    may be uneven and a lane past the items stays empty."""
+    check_mesh(mesh)
+    ranges = deal(n_items, mesh.size)
+    parts = [None if lo == hi else
+             stage(lane, (hi - lo, *shape), lambda h, lo=lo, hi=hi: fill(h, lo, hi), dtype)
+             for lane, (lo, hi) in zip(mesh.lanes, ranges)]
+    return Sharded(mesh, parts, ranges, axis=0)
+
+
+def shard_blocks(a: np.ndarray, mesh: Mesh) -> Sharded:
+    """A ready host stack [n, ...] (uint8 or int32) split as `shard_stack`
+    splits: small per-block operands beside a payload stack.  They too go
+    through pinned staging: a copy from pageable memory would make the host
+    wait for the lane's stream."""
+    dtype = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32}[a.dtype]
+    return shard_stack(a.shape[0], mesh, a.shape[1:], lambda h, lo, hi: np.copyto(h.numpy(), a[lo:hi]), dtype)
+
+
+def _same(D: Sharded, mesh: Mesh) -> None:
+    if D.mesh is not mesh:
+        raise ValueError("the array is sharded over another mesh than the one given")
+
+
+def replay_sharded(ds, D: Sharded, mesh: Mesh) -> Sharded:
+    """Sharded structured replay: D [M_pad, t] split on width -> C [L, t]."""
+    _same(D, mesh)
+    return D.each(lambda dev: device_arrays(ds, dev), replay)
+
+
+def lt_sharded(C: Sharded, isis: np.ndarray, P, mesh: Mesh) -> Sharded:
+    """Sharded LT combine: C [L, t] split on width -> symbols [n_pad, t]."""
+    _same(C, mesh)
+    return C.each(lambda dev: lt_plan(isis, P, dev), lambda plan, c: lt_combine(c, plan))
+
+
+def codec_step_sharded(ds, isis: np.ndarray, P, D: Sharded, mesh: Mesh) -> tuple[Sharded, Sharded]:
+    """Full device step (replay + LT) on every lane: (C, symbols)."""
+    C = replay_sharded(ds, D, mesh)
+    return C, lt_sharded(C, isis, P, mesh)
+
+
+def w_step_sharded(plan, D: Sharded, mesh: Mesh) -> Sharded:
+    """Sharded dense-W decode (`WSchedule.apply`): W replicated, payload
+    width split -- the matmul is elementwise in the t axis."""
+    _same(D, mesh)
+    return D.each(plan.staged, lambda _staged, d: plan.apply(d))

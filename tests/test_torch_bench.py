@@ -67,6 +67,20 @@ def test_bench_runs_ks_in_its_own_order_and_arms_only_where_asked():
     assert sorted(bench.RUN_ORDER) == sorted(bench.GRID) == sorted(bench.REF_BASELINE)
 
 
+def test_bench_mesh_adds_its_cells_and_only_when_asked(tiny_run):
+    """`--mesh 3` on the CPU: three CPU lanes, the two mesh cells beside the
+    unsharded ones (each behind its byte-equality gate); without it, no such key."""
+    rc, lines = _run(TINY + ["--ks", "10", "--mesh", "3"])
+    assert rc == 0 and [ln.get("K") for ln in lines] == [10, None]
+    ln = lines[0]
+    assert set(bench.KEYS) | set(bench.MESH_KEYS) <= set(ln) and ln["mesh_lanes"] == 3
+    for key in ("encode_e2e_mesh", "e2e_device_mesh"):
+        assert math.isfinite(ln[key]) and ln[key] > 0
+        assert ln[key + "_mbps"] == pytest.approx(ln[key] * 1e9 / 2**20)
+    assert ln["encode_e2e"] > 0 and ln["decode_e2e"] > 0 and ln["e2e_device"] is None  # arms only where asked
+    assert not set(bench.MESH_KEYS) & set(tiny_run[1][0])
+
+
 def test_bench_deadline_zero_prints_a_partial_summary():
     rc, lines = _run(TINY + ["--ks", "10", "--deadline", "0"])
     assert rc == 0 and len(lines) == 1

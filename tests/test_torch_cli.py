@@ -1,6 +1,6 @@
 """The port's CLI (nanorq_tpu_torch.cli) against nanorq_tpu.cli: the same stream
 for the same seed, each decoder restoring the other's stream, and the flags
-that persist caches or are not ported."""
+that persist caches or pick the mesh and the device."""
 
 import numpy as np
 import pytest
@@ -56,14 +56,19 @@ def test_layout_and_schedule_caches(src, tmp_path, monkeypatch):
 
 
 def test_unported_and_missing_device(src, tmp_path):
-    rq = tmp_path / "data.rq"
-    with pytest.raises(NotImplementedError):
-        tencode([str(src), "256", "-o", str(rq), "--mesh", "auto", "--device", "cpu"])
-    assert tencode([str(src), "256", "-o", str(rq), "--device", "cpu"]) == 0
-    with pytest.raises(NotImplementedError):
-        tdecode([str(tmp_path / "o.bin"), "-i", str(rq), "--mesh", "auto", "--device", "cpu"])
+    """`--mesh auto` on `--device cpu` has one device and nothing to split: it
+    encodes and decodes byte for byte, as `off` does.  The default device is
+    the card: with none, the CLI raises, with or without a mesh."""
+    rq, rq_off = tmp_path / "data.rq", tmp_path / "off.rq"
+    common = [str(src), "256", "--seed", "9", "--device", "cpu"]
+    assert tencode(common + ["-o", str(rq), "--mesh", "auto"]) == 0
+    assert tencode(common + ["-o", str(rq_off)]) == 0
+    assert rq.read_bytes() == rq_off.read_bytes()
+    assert tdecode([str(tmp_path / "o.bin"), "-i", str(rq), "--mesh", "auto", "--device", "cpu"]) == 0
+    assert (tmp_path / "o.bin").read_bytes() == src.read_bytes()
     if not torch.cuda.is_available():  # the default device is the card: no silent CPU
-        with pytest.raises(RuntimeError):
-            tencode([str(src), "256", "-o", str(rq)])
-        with pytest.raises(RuntimeError):
-            tdecode([str(tmp_path / "o.bin"), "-i", str(rq)])
+        for mesh in ([], ["--mesh", "auto"]):
+            with pytest.raises(RuntimeError):
+                tencode([str(src), "256", "-o", str(rq)] + mesh)
+            with pytest.raises(RuntimeError):
+                tdecode([str(tmp_path / "o2.bin"), "-i", str(rq_off)] + mesh)

@@ -170,14 +170,21 @@ def test_decode_equals_jax_decoder():
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_unported_arms_raise(kw):
+    """No arm is left unported: `mesh=` takes a Mesh of the port's lanes and
+    refuses anything else (a JAX mesh, say) before it splits any work."""
+    from nanorq_tpu_torch.parallel.mesh import make_mesh
+
     rng, data = _object(7)
     dec, io, _ = _lossy_decoder(data, rng)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         dec.repair_all(io, **kw)
     enc = Encoder(data.size, T, Al=8, Z=Z, device="cpu")
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError):
-            enc.encode_batch(0, np.arange(K, K + 3), MemoryIO(data), mesh=kw["mesh"])
+    with pytest.raises(TypeError):
+        enc.encode_batch(0, np.arange(K, K + 3), MemoryIO(data), mesh=kw["mesh"])
+    mesh = make_mesh(["cpu"] * 2)
+    want = Encoder(data.size, T, Al=8, Z=Z, device="cpu").encode_batch(0, np.arange(K, K + 3), MemoryIO(data))
+    assert np.array_equal(enc.encode_batch(0, np.arange(K, K + 3), MemoryIO(data), mesh=mesh), want)
+    assert dec.repair_all(io, mesh=mesh)
 
 
 def test_device_is_explicit():

@@ -49,6 +49,19 @@ for backend in backends:
         dec.add_symbols(reps[sbn][: rep.size], [make_tag(sbn, int(e)) for e in rep], io)
     assert dec.repair_all(io, backend=backend), backend
     assert np.array_equal(out, data), backend
+# the same object over a mesh of CPU lanes: parallel/ too runs without JAX
+from nanorq_tpu_torch.parallel.mesh import make_mesh
+mesh = make_mesh(["cpu"] * 3)
+mreps = batch.repair_symbols(batch.load_object(enc, MemoryIO(data)), 20, "cpu", mesh=mesh)
+assert all(np.array_equal(mreps[b], reps[b]) for b in range(Z))
+dec = Decoder(enc.oti_common(), enc.oti_scheme_specific(), device="cpu")
+out = np.zeros(data.size, np.uint8)
+io = MemoryIO(out)
+for sbn, (keep, rep) in enumerate(losses):
+    dec.add_symbols(data.reshape(Z * K, T)[sbn * K + keep], [make_tag(sbn, int(e)) for e in keep], io)
+    dec.add_symbols(mreps[sbn][: rep.size], [make_tag(sbn, int(e)) for e in rep], io)
+assert dec.repair_all(io, mesh=mesh) and np.array_equal(out, data)
+entry.dryrun_multichip(2, "cpu")
 fn, args = entry.entry("cpu")
 assert fn(*args).shape[0] >= 1002
 with tempfile.TemporaryDirectory() as d:
