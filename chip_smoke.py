@@ -24,7 +24,9 @@ Phases, each printing its own lines and its seconds:
    200), with their bounds; an index outside the source makes gather_xor
    raise, a ragged width makes the probes raise;
 3. encode: an object of Z=200 blocks x K=1000 x T=1280 through the port's
-   Encoder and codec.batch (generate + 200 repair symbols per block);
+   Encoder and codec.batch (generate + 200 repair symbols per block), the
+   object loaded into pinned memory (`load_s`) and its K live rows uploaded
+   in one copy on the default path;
 4. decode: 6% source loss + 5% repair overhead per block, recovered by
    Decoder.repair_all(backend="device"); the warm run must take one K1 and
    one K2 launch per stacked batch of blocks; its first K1 launch (a stacked
@@ -35,8 +37,9 @@ Phases, each printing its own lines and its seconds:
    encode), no out-of-range gather index in it, and the encode/decode wall
    times; then one warm encode and one warm device decode under
    torch.profiler: the device time of each kernel and copy, summed over the
-   run, beside its wall time; the encode must show 17 K1 kernels and no
-   torch.cat copy;
+   run, beside its wall time, and the copies by kind; the encode must show 17
+   K1 kernels and no torch.cat copy, and neither run may copy from or into
+   pageable memory;
 6. probe path: nanorq_tpu_torch.tools.gather_probe over both probe tables,
    every line bit-exact, with its launch counts;
 7. decode arms: the phase-4 object and losses through repair_all with
@@ -47,9 +50,9 @@ Phases, each printing its own lines and its seconds:
    T=1280, decoded with the default backend and with --layout-cache (the
    device arm), byte-compared with the file;
 9. bench: nanorq_tpu_torch.bench at K = 1000 and K = 100 with every decode
-   arm (--iters 4 --deadline 120), in this process: one line per K with
-   every key, a number or null, `dec_plan` "W" at K = 1000; its lines are
-   printed again as `[bench] ...`;
+   arm cold and warm (--arms --iters 4 --deadline 120), in this process: one
+   line per K with every key, a number or null, `dec_plan` "W" at K = 1000;
+   its lines are printed again as `[bench] ...`;
 10. mesh: the object of phase 3 and the deliveries of phase 4 over lanes
    (nanorq_tpu_torch/parallel: a lane is a card, a stream of its own and
    pinned staging) -- over `make_mesh()` (every visible card, a lane each) and
@@ -58,17 +61,23 @@ Phases, each printing its own lines and its seconds:
    times in turn with the unsharded path (`mesh=None`), host clock between
    synchronisations, the first round of a mesh apart (it pins its staging),
    every result held bit for bit against phase 3's repair symbols; the upload
-   alone (`shard_width`) with every row and with the K live rows, beside the
-   unsharded path's pageable copy, the host's staging copy into pinned memory
-   and the copy from pinned memory to the card; the four sharded calls of one warm encode
-   on 1 and on 4 lanes with a wait after each; `repair_all(backend="device", mesh=)` cold
+   alone: the default path's one copy of the live rows, a pageable copy of
+   every row, 4 lanes with every row and with the K live rows, the host's
+   staging copy into pinned memory and the copy from pinned memory to the
+   card; the four sharded calls of one warm encode on the default path's
+   lane, on 1 and on 4 lanes with a wait after each (where a warm encode's
+   time goes); `repair_all(backend="device", mesh=)` cold
    on `make_mesh()`, then warm with `mesh=None` and 4 lanes in turn, twice,
    every run restoring the object; `parallel._dryrun.run(4, device)` in both
    modes; no gather index flagged on any card.  One `[mesh]` line holds the
-   times beside the card's name and power limit.
+   times beside the card's name and power limit;
+11. sweeps: each retuning sweep of nanorq_tpu_torch/tools at one small point
+   (K = 1000, 4 blocks): cb_probe over two chunk sizes, C bit-identical;
+   slotfill_probe; bsweep; wb_probe, every form exact; replay_stage_prof.
 
-Each of the paths 3-4, 6, 7, 8, 9 and 10 runs with the launch counts set to 0
-just before it and read just after, and fails if a kernel it runs never launched.
+Each of the paths 3-4, 6, 7, 8, 9, 10 and 11 runs with the launch counts set
+to 0 just before it and read just after, and fails if a kernel it runs never
+launched.
 Any failure raises and the script exits non-zero.  The last line is one JSON
 object: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports no JAX and nothing of the JAX package: the host pieces it needs come
@@ -542,9 +551,9 @@ def phase_cli(rng) -> dict:
 
 def phase_bench() -> dict:
     """The port's bench in this process at K = 1000 and K = 100, every decode
-    arm: both lines came, every key is there, a finite number or null, the
-    main cells are numbers unless the bench's deadline cut the run, and
-    K = 1000 decodes by the dense-W plan."""
+    arm cold and warm (--arms): both lines came, every key is there, a finite
+    number or null, the main cells are numbers unless the bench's deadline
+    cut the run, and K = 1000 decodes by the dense-W plan."""
     from nanorq_tpu_torch import bench
 
     out = io.StringIO()
@@ -564,7 +573,7 @@ def phase_bench() -> dict:
             if not (v is None or isinstance(v, (bool, str)) or np.isfinite(v)):
                 raise AssertionError(f"bench K={k}: {key} = {v!r}")
         main_cells = ("encode", "encode_e2e", "decode", "decode0", "decode_e2e", "e2e_device", "e2e_res",
-                      "e2e_res_host", "e2e_host")
+                      "e2e_res_host", "e2e_host", *(f"e2e_{arm}_warm" for arm in bench.ARMS))
         if not line["partial"] and not all(line[c] and line[c] > 0 for c in main_cells):
             raise AssertionError(f"bench K={k}: a cell is missing from a whole run: { {c: line[c] for c in main_cells} }")
     if per_k[1000]["dec_plan"] != "W":
@@ -603,16 +612,25 @@ def phase_mesh(enc, batch, data, reps, dev, deliveries, smi: str) -> dict:
     if flagged():
         raise AssertionError("a gather of the mesh encode met an index outside its source")
 
-    # the upload alone, on 4 lanes: every row of D against the K live ones, and
-    # the unsharded path's one copy from pageable memory; then the two halves
-    # of a lane's upload apart, the host's staging copy of the live rows into
-    # pinned memory and the copy from there to the card; each twice, in turn
+    # the upload alone: the default path's one copy of the K live rows out of
+    # the pinned object; the copy of every row of a pageable D (what the
+    # default path did before it staged through the lanes); 4 lanes, every
+    # row and the K live ones; then the two halves of a staged lane's
+    # upload apart, the host's staging copy of the live rows into pinned
+    # memory and the copy from there to the card; each twice, in turn
+    M_pad = tcache.encoder_schedule(enc.P.Kp).M_pad
+    paged = np.zeros((M_pad, Z * T), np.uint8)
+    paged[:K] = batch.D[:K]
     pinned = torch.empty((K, Z * T), dtype=torch.uint8, pin_memory=True)
+    local = lanes.local_mesh(dev)
     up_s = {}
     for _ in range(2):
-        for name, fn in (("pageable_all_rows", lambda: torch.from_numpy(batch.D).to(dev)),
-                         ("lanes4_all_rows", lambda: lanes.shard_width(batch.D, meshes["4"], block=T)),
-                         ("lanes4_live_rows", lambda: lanes.shard_width(batch.D, meshes["4"], block=T, live_rows=K)),
+        for name, fn in (("default_live_rows", lambda: lanes.shard_width(batch.D, local, block=T, live_rows=K,
+                                                                         rows=M_pad)),
+                         ("pageable_all_rows", lambda: torch.from_numpy(paged).to(dev)),
+                         ("lanes4_all_rows", lambda: lanes.shard_width(paged, meshes["4"], block=T)),
+                         ("lanes4_live_rows", lambda: lanes.shard_width(batch.D, meshes["4"], block=T, live_rows=K,
+                                                                        rows=M_pad)),
                          ("host_staging_live_rows", lambda: pinned.copy_(torch.from_numpy(batch.D)[:K])),
                          ("pinned_copy_live_rows", lambda: pinned.to(dev, non_blocking=True))):
             _sync_all()
@@ -621,7 +639,7 @@ def phase_mesh(enc, batch, data, reps, dev, deliveries, smi: str) -> dict:
             _sync_all()
             up_s.setdefault(name, []).append(time.perf_counter() - t0)
             del x
-    del pinned
+    del pinned, paged
 
     # where a warm encode's time goes, on 1 and on 4 lanes: its four sharded
     # calls with a wait after each (so nothing overlaps), twice
@@ -638,9 +656,9 @@ def phase_mesh(enc, batch, data, reps, dev, deliveries, smi: str) -> dict:
         return got
 
     for _ in range(2):
-        for name in ("1", "4"):
-            mesh = meshes[name]
-            Dsh = timed(f"{name}_shard_width", lambda: lanes.shard_width(batch.D, mesh, block=T, live_rows=K))
+        for name, mesh in (("none", local), ("1", meshes["1"]), ("4", meshes["4"])):
+            Dsh = timed(f"{name}_shard_width", lambda: lanes.shard_width(batch.D, mesh, block=T, live_rows=K,
+                                                                         rows=M_pad))
             C = timed(f"{name}_replay", lambda: lanes.replay_sharded(ds, Dsh, mesh))
             sym = timed(f"{name}_lt", lambda: lanes.lt_sharded(C, isis, enc.P, mesh))
             timed(f"{name}_download", lambda: sym.host_blocks(T, Z, N_REPAIR))
@@ -673,6 +691,36 @@ def phase_mesh(enc, batch, data, reps, dev, deliveries, smi: str) -> dict:
     return line
 
 
+def phase_sweeps() -> dict:
+    """Phase 11: each retuning sweep of nanorq_tpu_torch/tools at one small
+    point on the card, every line printed again as `[sweep] ...`: cb_probe
+    over CB = 128 and 256 (the tool raises unless C is bit-identical),
+    slotfill_probe, bsweep, wb_probe (every form exact against the dropped
+    source rows) and replay_stage_prof, at K = 1000 and 4 blocks."""
+    from nanorq_tpu_torch.tools import bsweep, cb_probe, replay_stage_prof, slotfill_probe, wb_probe
+
+    runs = {"cb_probe": (cb_probe.main, ["1000", "128", "256", "--blocks", "4", "--iters", "2"]),
+            "slotfill_probe": (slotfill_probe.main, ["1000"]),
+            "bsweep": (bsweep.main, ["1000", "4", "--iters", "2"]),
+            "wb_probe": (wb_probe.main, ["1000", "--bs", "4", "--iters", "2"]),
+            "replay_stage_prof": (replay_stage_prof.main, ["1000", "4", "2"])}
+    got = {}
+    for name, (fn, argv) in runs.items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            lines = fn(argv)
+        for line in lines:
+            print("[sweep] " + json.dumps(line), flush=True)
+        if not lines:
+            raise AssertionError(f"{name} printed no line")
+        _say("sweep", tool=name, lines=len(lines), seconds=f"{time.perf_counter() - t0:.2f}")
+        got[name] = lines
+    if not (all(ln["C_equal"] for ln in got["cb_probe"]) and all(ln["exact"] for ln in got["wb_probe"])):
+        raise AssertionError("a sweep's result differs")
+    torch.cuda.empty_cache()
+    return got
+
+
 def _short(name: str) -> str:
     """A profiler event's kernel name without its return type and arguments."""
     name = name.replace("(anonymous namespace)", "{anon}").split("(", 1)[0]
@@ -682,8 +730,10 @@ def _short(name: str) -> str:
 def phase_profile(enc, batch, data, reps, dev, deliveries) -> dict:
     """One warm encode and one warm device decode (repair_all alone, as
     phase 4 times it) under torch.profiler, device activity only: per run,
-    its wall seconds, the summed device time, and per kernel or copy its ms
-    and count."""
+    its wall seconds, the summed device time, per kernel or copy its ms and
+    count, and the copies by kind.  Neither may copy from or into pageable
+    memory ("Memcpy HtoD (Pageable -> Device)", "Memcpy DtoH (Device ->
+    Pageable)"): the default path stages in pinned memory."""
     from torch.profiler import ProfilerActivity, profile
 
     from nanorq_tpu_torch.codec import batch as tbatch
@@ -704,9 +754,12 @@ def phase_profile(enc, batch, data, reps, dev, deliveries) -> dict:
             out, wall, _ = _decode_once(enc, data, reps, deliveries, dev, "device", around=lambda: prof)
             if not np.array_equal(out, data):
                 raise AssertionError("the profiled decode did not restore the object")
-        per = {}
+        per, copies = {}, {}
         for e in prof.key_averages():
             ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+            if e.key.startswith("Memcpy"):  # by kind: "Memcpy HtoD (Pinned -> Device)", ...
+                tot, cnt = copies.get(e.key, (0.0, 0))
+                copies[e.key] = (tot + ms, cnt + e.count)
             if ms > 0:
                 key = _short(e.key)
                 tot, cnt = per.get(key, (0.0, 0))
@@ -717,7 +770,11 @@ def phase_profile(enc, batch, data, reps, dev, deliveries) -> dict:
         report[name] = {"wall_s": wall, "device_ms": device_ms}
         _say("profile", run=name, wall_s=f"{wall:.4f}", device_ms=f"{device_ms:.3f}",
              busy=f"{device_ms / 1e3 / wall:.3f}", k1_ms=f"{sum(ms for ms, _ in k1):.4f}",
-             k1_launches=sum(c for _, c in k1), top=json.dumps({k: [round(ms, 4), n] for k, (ms, n) in top}))
+             k1_launches=sum(c for _, c in k1), top=json.dumps({k: [round(ms, 4), n] for k, (ms, n) in top}),
+             copies=json.dumps({k: [round(ms, 4), n] for k, (ms, n) in sorted(copies.items())}))
+        pageable = [k for k in copies if "Pageable" in k]
+        if pageable:  # the default path moves every payload through pinned memory
+            raise AssertionError(f"the profiled warm {name} copied through pageable memory: {pageable}")
         if name == "encode":
             cats = [k for k in per if "CatArray" in k]
             if sum(c for _, c in k1) != gather_launches.ENCODE_LAUNCHES or cats:
@@ -740,7 +797,10 @@ def phase_checks(enc, batch, reps, data, outs, dev) -> tuple[int, float]:
     del sys_sym, D_dev
     t0 = time.perf_counter()
     nb = 1
-    C_np = replay_numpy(batch.D[:, : nb * T], encoder_schedule(P.Kp))
+    ds = encoder_schedule(P.Kp)
+    D_np = np.zeros((ds.M_pad, nb * T), np.uint8)  # batch.D holds the K live rows (pinned)
+    D_np[:K] = batch.D[:K, : nb * T]
+    C_np = replay_numpy(D_np, ds)
     if not np.array_equal(C[:, : nb * T].cpu().numpy(), C_np):
         raise AssertionError("C differs from the numpy replay")
     want = lt_numpy(C_np, np.arange(P.Kp, P.Kp + N_REPAIR), P)
@@ -759,6 +819,7 @@ def main() -> None:
     smi, kind, dev = phase_device()  # phase 0
     phase_build()  # phase 1
 
+    from nanorq_tpu_torch import bench
     from nanorq_tpu_torch.codec import batch as tbatch
     from nanorq_tpu_torch.codec.api import Encoder
     from nanorq_tpu_torch.host import MemoryIO
@@ -857,6 +918,9 @@ def main() -> None:
          e2e_device_mbps=b1000["e2e_device_mbps"], phase4_device_cold_mbps=_mbps(F, dec_s[0]),
          **{f"e2e_{arm}_mbps": b1000[f"e2e_{arm}_mbps"] for arm in ("res", "res_host", "host")},
          **{f"phase7_{arm}_cold_mbps": _mbps(F, arm_s[f"{arm}_cold"]) for arm in ("res", "res_host", "host")},
+         e2e_auto_ok=b1000["e2e_auto_ok"], e2e_auto_warm_ok=b1000["e2e_auto_warm_ok"],
+         warm_mbps=json.dumps({arm: b1000[f"e2e_{arm}_warm_mbps"] and round(b1000[f"e2e_{arm}_warm_mbps"], 1)
+                               for arm in bench.ARMS}),
          seconds=f"{time.perf_counter() - t0:.2f}")
 
     t0 = time.perf_counter()
@@ -871,6 +935,16 @@ def main() -> None:
          decode_4_warm_mbps=_mbps(F, min(mesh_line["decode_s"]["4_warm"])),
          seconds=f"{time.perf_counter() - t0:.2f}")
     del batch
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()  # the sweeps start here
+    phase_sweeps()  # phase 11
+    sweep_launches = dict(kernels.LAUNCHES)  # and end here
+    if not all(sweep_launches[n] > 0 for n in ("gather_xor", "gf2_matmul", "gf256_matmul")):
+        raise AssertionError(f"the sweeps missed a kernel: {sweep_launches}")
+    if kernels.take_index_errors(dev):
+        raise AssertionError("a gather of the sweeps met an index outside its source")
+    _say("sweeps", launches=json.dumps(sweep_launches), seconds=f"{time.perf_counter() - t0:.2f}")
     _say("phase", name="all", seconds=f"{time.perf_counter() - t_start:.2f}")
 
     print(json.dumps({"kernels": [

@@ -17,14 +17,24 @@ the port's torch code on the explicit `device` the object was built with:
     (ops/wpath.res_apply_batch).  Raises when the native factorization is
     missing, where the JAX package quietly reroutes to the host;
   - "res_host" and "host": the native CPU arms, with no device half;
-  - "auto": warm patterns (a device plan already cached) on the device,
-    cold ones on "res_host" up to K' = NANORQ_RES_HOST_MAX (256), else on
-    "host" -- the JAX package's rule, unchanged.
+  - "auto": the port's own rule, set from the H100 host's numbers (`python
+    -m nanorq_tpu_torch.bench --arms`, every arm cold and warm at K = 100
+    ... 50000 and at K' = 200 ... 800 between; PERF.md, sections 4 and 6).
+    Cold patterns go to "res_host" up to K' = NANORQ_RES_HOST_MAX (560, the
+    measured crossover), else to "host".  Warm patterns (a device plan
+    cached) go to the device from K' = 441 up, and below it to "res_host",
+    which beat the warm device arm there.  The JAX package sends every warm
+    pattern to the device and cold ones to "res_host" up to K' = 256, a
+    crossover measured on another host; on the H100 host "res_host" beat
+    the warm device arm up to K' = 405 and every cold arm but "res" up to
+    511.
 
 `mesh=` (a `parallel.mesh.Mesh`) splits the device work over the mesh's
 lanes, each a device with a stream of its own: the encoder's replay and LT
 combine by payload width, the decoder's stacked W batches by block, its
-structured plans block by block in turn.  A mesh forces the decoder's device
+structured plans block by block in turn.  With no mesh the same code runs
+on one lane of `device` on its current stream (`parallel.mesh.local_mesh`):
+pinned transfers of the live rows only.  A mesh forces the decoder's device
 arm, and its lanes' devices do the work, whatever `device` the object has.
 """
 
@@ -55,10 +65,6 @@ _NO_FACTOR = ('backend "res" needs the native solver\'s canonical factorization,
 BACKENDS = ("auto", "device", "host", "res", "res_host")
 
 
-def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-
 # symbol ingestion statuses (include/nanorq.h:10-13)
 SYM_ADDED = 0
 SYM_IGN = 1
@@ -71,10 +77,16 @@ _ZERO_ROWS: dict[int, np.ndarray] = {}
 
 
 # K' at or below which the auto decode policy prefers the solve-free host
-# residual arm over the patched-system host solve for cold patterns
-# (measured crossover ~K'=250 on an AVX-512 host: res_host 8.6 vs host 6.8
-# at K=200, 6.3 vs 8.7 at K=320; see _repair_residual_host_batch)
-_RES_HOST_MAX = int(os.environ.get("NANORQ_RES_HOST_MAX", "256"))
+# residual arm over the patched-system host solve for cold patterns.  The
+# crossover on the H100 host (bench --arms, cold, Mb/s res_host / host):
+# 10631 / 7635 at K'=301, 7736 / 6653 at 511, 5924 / 6725 at 600, 3437 /
+# 9750 at 1002 (PERF.md, section 6); the JAX package's 256 was measured on an
+# AVX-512 host.
+_RES_HOST_MAX = int(os.environ.get("NANORQ_RES_HOST_MAX", "560"))
+# K' at or below which "auto" sends a warm pattern (its device plan cached)
+# to the host residual arm too: warm, res_host / device, 9341 / 7745 Mb/s at
+# K'=301, 9424 / 7962 at 405, 9043 / 12693 at 511 (PERF.md, section 6)
+_RES_HOST_WARM_MAX = 440
 
 
 def _zero_row(T: int) -> np.ndarray:
@@ -97,7 +109,7 @@ class _Block:
 
     def __init__(self, K: int):
         self.K = K
-        self.D: np.ndarray | None = None  # [M_pad, T] payload matrix
+        self.D: np.ndarray | None = None  # payload matrix: an encoder's is `parallel.mesh.host_matrix`
         self.C = None  # device intermediate symbols [L, T]
         self.loaded = False
         self.got = np.zeros(K, bool)  # received source esis
@@ -279,7 +291,7 @@ class Encoder(_CodecBase):
         b = self._block(sbn)
         if not b.loaded:
             ds = _cache.encoder_schedule(self.P.Kp)
-            D = np.zeros((ds.M_pad, self.scheme.T), np.uint8)
+            D = lanes.host_matrix(b.K, ds.M_pad, self.scheme.T, self.device)
             for esi in range(b.K):
                 D[esi] = self._read_symbol(io, sbn, esi, b.K)
             b.D = D
@@ -287,21 +299,22 @@ class Encoder(_CodecBase):
         return b
 
     def generate_symbols(self, sbn: int, io: IOContext, mesh=None) -> bool:
-        """Compute the block's intermediate symbols C [L, T] on the device.
+        """Compute the block's intermediate symbols C [L, T] on the device;
+        only the block's K payload rows are uploaded.
 
         With `mesh`, the payload width is split over its lanes (the replay is
-        a stream of row operations, columnwise independent) and C stays
-        sharded.  For a whole object prefer codec.batch, which lays the blocks
-        side by side on the width axis before it splits."""
+        a stream of row operations, columnwise independent; shards may be
+        unequal, so nothing is padded) and C stays sharded.  For a whole
+        object prefer codec.batch, which lays the blocks side by side on the
+        width axis before it splits."""
         b = self._load(io, sbn)
         if b.C is None:
             ds = _cache.encoder_schedule(self.P.Kp)
             if mesh is not None:
                 lanes.check_mesh(mesh)
-                Dp = lanes.pad_width(b.D, int(np.prod(mesh.devices.shape)))
-                b.C = lanes.replay_sharded(ds, lanes.shard_width(Dp, mesh, live_rows=b.K), mesh)
-            else:
-                b.C = replay(device_arrays(ds, self.device), _upload(b.D, self.device))
+            on = lanes.local_mesh(self.device) if mesh is None else mesh
+            C = lanes.replay_sharded(ds, lanes.shard_width(b.D, on, live_rows=b.K, rows=ds.M_pad), on)
+            b.C = C if mesh is not None else C.parts[0]
         return True
 
     def encode_batch(self, sbn: int, esis: np.ndarray, io: IOContext, mesh=None) -> np.ndarray:
@@ -328,11 +341,8 @@ class Encoder(_CodecBase):
             isis = (esis[rep] + (self.P.Kp - b.K)).astype(np.uint32)
             if isinstance(b.C, lanes.Sharded) and b.C.mesh is not mesh:
                 b.C = b.C.gather(self.device)
-            if isinstance(b.C, lanes.Sharded):
-                out[rep] = lanes.lt_sharded(b.C, isis, self.P, mesh).host(rep.size)[:, :T]
-            else:
-                sym = lt_combine(b.C, lt_plan(isis, self.P, self.device))
-                out[rep] = sym[: rep.size, :T].cpu().numpy()
+            C = b.C if isinstance(b.C, lanes.Sharded) else lanes.whole(b.C)
+            out[rep] = lanes.lt_sharded(C, isis, self.P, C.mesh).host(rep.size)
         return out
 
     def encode(self, esi: int, sbn: int, io: IOContext) -> np.ndarray:
@@ -344,19 +354,20 @@ class Encoder(_CodecBase):
 
 class _HostResult:
     """Lazy host copy of one device result: the first np.asarray() of any
-    of its views waits for the device and fetches the whole tensor once.
-    `lane`: the mesh lane whose stream produced it, and then downloads it."""
+    of its views waits for the device and fetches the whole tensor once,
+    into pinned memory.  `lane`: the lane whose stream produced it, and then
+    downloads it."""
 
     __slots__ = ("dev", "lane", "_np")
 
-    def __init__(self, dev: torch.Tensor, lane=None):
+    def __init__(self, dev: torch.Tensor, lane):
         self.dev = dev
         self.lane = lane
         self._np = None
 
     def numpy(self) -> np.ndarray:
         if self._np is None:
-            self._np = self.dev.cpu().numpy() if self.lane is None else lanes.fetch([(self.lane, self.dev)])[0]
+            self._np = lanes.fetch([(self.lane, self.dev)])[0]
         return self._np
 
 
@@ -635,45 +646,25 @@ class Decoder(_CodecBase):
         D[P.Kp : P.Kp + overhead] = b.rep_rows[ng : ng + overhead]
         return D
 
-    def _repair_launch_batch(self, items, mesh=None):
-        """Stacked launch for same-(kind, M_pad) WSchedule blocks.
+    def _repair_launch_batch(self, items, mesh):
+        """Stacked launch for same-(kind, M_pad) WSchedule blocks over the
+        lanes of `mesh` (the default path's is `parallel.mesh.local_mesh`):
+        the stacked block axis is the split one.  items: [(sbn, gaps,
+        overhead, plan, D_host|None)] -> [(sbn, gaps, view)]; the views share
+        one result object, which downloads every lane's rows at once.
 
-        items: [(sbn, gaps, overhead, plan, D_host|None)] -> [(sbn, gaps,
-        view)]; the views share one device result, fetched once.  With
-        `mesh`, the stack is split over its lanes (`_repair_launch_lanes`)."""
-        stats.count("repair_batch_launch")
-        stats.count("repair_batch_blocks", len(items))
-        if mesh is not None:
-            return self._repair_launch_lanes(items, mesh)
-        plans = [p for _, _, _, p, _ in items]
-        M_pad = plans[0].M_pad
-        D = np.zeros((len(items), M_pad, self.scheme.T), np.uint8)
-        for j, (sbn, gaps, ov, _p, Dh) in enumerate(items):
-            D[j] = Dh if Dh is not None else self._repair_D(sbn, gaps, ov, M_pad)
-        dev = self.device
-        if plans[0].Wbits is not None:
-            bits, rows = wpath.w_stack_gf2(plans)
-            out = wpath.w_apply_gf2_batch(_upload(bits, dev), _upload(rows[..., None], dev),
-                                          _upload(D, dev))
-        else:
-            out = wpath.w_apply_gf256_batch(_upload(wpath.w_stack_gf256(plans), dev), _upload(D, dev))
-        res = _HostResult(out)
-        return [(it[0], it[1], _HostView(res, j)) for j, it in enumerate(items)]
-
-    def _repair_launch_lanes(self, items, mesh):
-        """`_repair_launch_batch` over a mesh: the stacked block axis is the
-        split one.  Contiguous runs of blocks are dealt to the lanes
+        Contiguous runs of blocks are dealt to the lanes
         (`parallel.mesh.deal`), the bits / rows / W stacks the same way; each
-        lane stages its run in pinned memory, uploads and launches on its own
-        stream, and one result object downloads every lane's rows at once.
-
-        The JAX package pads the block count to a multiple of the device
-        count, because its `device_put` demands equal shards; here runs may
-        be uneven and a lane past the blocks is skipped.  A lane's payload
-        stack holds rows [0, live) and one zero row, live = K' + the largest
-        overhead, not M_pad rows: every row past `live` is zero, so a
+        lane stages its run in pinned memory, uploads and launches on its
+        stream.  The JAX package pads the block count to a multiple of the
+        device count, because its `device_put` demands equal shards; here
+        runs may be uneven and a lane past the blocks is skipped.  A lane's
+        payload stack holds rows [0, live) and one zero row, live = K' + the
+        largest overhead, not M_pad rows: every row past `live` is zero, so a
         gathered row at or past it reads the zero row and W's columns there
         are cut -- the same product from half the upload."""
+        stats.count("repair_batch_launch")
+        stats.count("repair_batch_blocks", len(items))
         plans = [p for _, _, _, p, _ in items]
         M_pad, T = plans[0].M_pad, self.scheme.T
         live = min(self.P.Kp + max(ov for _, _, ov, _, _ in items), M_pad - 1)
@@ -699,25 +690,14 @@ class Decoder(_CodecBase):
         res = _ShardedResult(out)
         return [(it[0], it[1], _HostView(res, j)) for j, it in enumerate(items)]
 
-    def _repair_launch(self, sbn: int, gaps: np.ndarray, overhead: int, ds, D_dev=None):
-        """Launch one block's recovery; returns a host view of its gap rows.
-
-        A WSchedule runs one dense-W matmul; a DeviceSchedule the structured
-        replay plus an LT combine of the gap ISIs.  D_dev: optionally the
-        payload matrix [ds.M_pad, T] already on the device."""
-        if D_dev is None:
-            D_dev = _upload(self._repair_D(sbn, gaps, overhead, ds.M_pad), self.device)
-        if isinstance(ds, _cache.WSchedule):
-            sym = ds.apply(D_dev)
-        else:
-            C = replay(device_arrays(ds, self.device), D_dev)
-            sym = lt_combine(C, lt_plan(gaps.astype(np.uint32), self.P, self.device))
-        return _HostView(_HostResult(sym[: gaps.size]))
-
-    def _repair_launch_on(self, lane, sbn: int, gaps: np.ndarray, overhead: int, ds):
-        """`_repair_launch` on a mesh lane: what is cached per device is
-        fetched first, on the current stream; then the block's live rows are
-        staged in pinned memory, uploaded and launched on the lane's stream."""
+    def _repair_launch(self, lane, sbn: int, gaps: np.ndarray, overhead: int, ds):
+        """Launch one block's recovery on `lane`; returns a host view of its
+        gap rows.  A WSchedule runs one dense-W matmul; a DeviceSchedule the
+        structured replay plus an LT combine of the gap ISIs.  What is cached
+        per device is fetched first, on the current stream; then the block's
+        live rows (K' + overhead of M_pad) are staged in pinned memory,
+        uploaded and launched on the lane's stream.  The rows past them are
+        zeroed on the device: the structured replay reads all M_pad."""
         if isinstance(ds, _cache.WSchedule):
             ds.staged(lane.device)
             run = ds.apply
@@ -750,7 +730,8 @@ class Decoder(_CodecBase):
         if ds is None:
             stats.count("repair_block_failed")
             return False  # rank deficient: feed more symbols, retry
-        return self._repair_finish(io, sbn, gaps, self._repair_launch(sbn, gaps, overhead, ds))
+        lane = lanes.local_mesh(self.device).lanes[0]
+        return self._repair_finish(io, sbn, gaps, self._repair_launch(lane, sbn, gaps, overhead, ds))
 
     def _row_ptrs(self, sbn: int, gaps: np.ndarray, overhead: int, NB: int) -> np.ndarray:
         """Per-row payload addresses of the patched system's NB rows —
@@ -950,26 +931,40 @@ class Decoder(_CodecBase):
                 stats.count("repair_block_failed")
                 ok = False
         stats.count("repair_res_blocks", len(items))
-        dev, launched = self.device, []
+        lane, launched = lanes.local_mesh(self.device).lanes[0], []
+
+        def put_W(h, meta, W, R):
+            h[: W.shape[0]] = W
+
+        def put_R(h, meta, W, R):
+            h[: meta[1].size, : W.shape[0]] = R
+
+        def put_D0(h, meta, W, R):
+            b = self._block(meta[0])
+            if b.D is not None:
+                n = min(b.D.shape[0], kc)
+                h[:n] = b.D[:n]
+
+        def put_y(h, meta, W, R):
+            h[: W.shape[0]] = self._block(meta[0]).rep_rows[: W.shape[0]]
+
         for c0 in range(0, len(items), self._BATCH_FLUSH):
             chunk = items[c0 : c0 + self._BATCH_FLUSH]
-            nb = len(chunk)
             nr = max(W.shape[0] for _, W, _ in chunk)
             g = max(m[1].size for m, _, _ in chunk)
-            Wst = np.zeros((nb, nr, kc), np.uint8)
-            Rst = np.zeros((nb, g, nr), np.uint8)
-            D0 = np.zeros((nb, kc, T), np.uint8)
-            yst = np.zeros((nb, nr, T), np.uint8)
-            for j, ((sbn, gaps), W, R) in enumerate(chunk):
-                Wst[j, : W.shape[0]] = W
-                Rst[j, : gaps.size, : W.shape[0]] = R
-                b = self._block(sbn)
-                if b.D is not None:
-                    n = min(b.D.shape[0], kc)
-                    D0[j, :n] = b.D[:n]
-                yst[j, : W.shape[0]] = b.rep_rows[: W.shape[0]]
-            res = _HostResult(wpath.res_apply_batch(_upload(Wst, dev), _upload(D0, dev),
-                                                    _upload(Rst, dev), _upload(yst, dev)))
+
+            def stack(shape, put, chunk=chunk):
+                """A zeroed stack [blocks, *shape] with put(h[j], *item j), in pinned staging."""
+                def fill(host):
+                    h = host.numpy()
+                    h[...] = 0
+                    for j, item in enumerate(chunk):
+                        put(h[j], *item)
+                return lanes.stage(lane, (len(chunk), *shape), fill)
+
+            out = wpath.res_apply_batch(stack((nr, kc), put_W), stack((kc, T), put_D0),
+                                        stack((g, nr), put_R), stack((nr, T), put_y))
+            res = _HostResult(out, lane)
             launched.extend((m[0], m[1], _HostView(res, j)) for j, (m, _, _) in enumerate(chunk))
         return ok, launched
 
@@ -1009,13 +1004,14 @@ class Decoder(_CodecBase):
             host_work = work
         elif backend == "res_host":
             rhost_work = work
-        else:  # auto: warm plans on the device; cold patterns on the host
-            small = self.P.Kp <= _RES_HOST_MAX
+        else:  # auto: the port's rule (module docstring)
+            Kp = self.P.Kp
             for item in work:
                 hit, plan = _cache.decoder_plan_cached(self.P, item[2], item[3])
-                if hit and plan is not None:
+                warm = hit and plan is not None
+                if warm and Kp > _RES_HOST_WARM_MAX:
                     dev_work.append(item)
-                elif small:
+                elif Kp <= (_RES_HOST_WARM_MAX if warm else _RES_HOST_MAX):
                     rhost_work.append(item)
                 else:
                     host_work.append(item)
@@ -1047,19 +1043,22 @@ class Decoder(_CodecBase):
         this thread launches each block as its solve lands; WSchedule
         blocks of one (kind, M_pad) are stacked into batches.  Under a mesh
         a batch is split over the lanes, even one of a single block, and
-        structured plans launch block by block on the lanes in turn.  This
-        thread alone launches: the kernels' launch counts are plain state."""
+        structured plans launch block by block on the lanes in turn; with no
+        mesh, everything runs on the local mesh's one lane (the device's
+        current stream, pinned transfers of the live rows).  This thread
+        alone launches: the kernels' launch counts are plain state."""
         stats.count("repair_device_blocks", len(work))
         ok, launched, pend = True, [], {}
-        turn = None if mesh is None else itertools.cycle(mesh.lanes)
+        on = lanes.local_mesh(self.device) if mesh is None else mesh
+        turn = itertools.cycle(on.lanes)
 
         def flush(key):
             items = pend.pop(key, [])
             if len(items) == 1 and mesh is None:
                 s, g, ov, ds, _ = items[0]
-                launched.append((s, g, self._repair_launch(s, g, ov, ds)))
+                launched.append((s, g, self._repair_launch(on.lanes[0], s, g, ov, ds)))
             elif items:
-                launched.extend(self._repair_launch_batch(items, mesh))
+                launched.extend(self._repair_launch_batch(items, on))
 
         with ThreadPoolExecutor(max_workers=max_workers or 1) as ex:
             futs = [(s, g, ov, ex.submit(_cache.decoder_plan, self.P, isis, ov))
@@ -1074,10 +1073,8 @@ class Decoder(_CodecBase):
                     pend.setdefault(key, []).append((sbn, gaps, ov, ds, None))
                     if len(pend[key]) >= self._BATCH_FLUSH:
                         flush(key)
-                elif mesh is None:
-                    launched.append((sbn, gaps, self._repair_launch(sbn, gaps, ov, ds)))
                 else:
-                    launched.append((sbn, gaps, self._repair_launch_on(next(turn), sbn, gaps, ov, ds)))
+                    launched.append((sbn, gaps, self._repair_launch(next(turn), sbn, gaps, ov, ds)))
             for key in list(pend):
                 flush(key)
         return ok, launched

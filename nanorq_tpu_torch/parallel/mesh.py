@@ -35,20 +35,30 @@ from nanorq_tpu_torch.ops.replay import device_arrays, replay
 
 
 class Lane:
-    """One shard's place: a device and, on CUDA, a stream of its own."""
+    """One shard's place: a device and, on CUDA, the stream its work goes to.
+    A lane of a mesh has a stream of its own; the default path's lane
+    (`local_mesh`) takes the device's current stream."""
 
     __slots__ = ("device", "stream")
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, own_stream: bool = True):
         self.device = device
-        self.stream = torch.cuda.Stream(device=device) if device.type == "cuda" else None
+        self.stream = torch.cuda.Stream(device=device) if own_stream and device.type == "cuda" else None
+
+    @property
+    def cuda(self) -> bool:
+        return self.device.type == "cuda"
+
+    def queue(self):
+        """The CUDA stream this lane's copies and launches go to."""
+        return self.stream if self.stream is not None else torch.cuda.current_stream(self.device)
 
     @contextlib.contextmanager
     def on(self):
         """Inside, torch allocates and launches on this lane's device and
-        stream.  The stream first waits for the device's current stream: the
-        tensors cached per device (schedules, plans, the kernels' tables and
-        flags) are uploaded there."""
+        stream.  A stream of its own first waits for the device's current
+        stream: the tensors cached per device (schedules, plans, the kernels'
+        tables and flags) are uploaded there."""
         if self.stream is None:
             yield
             return
@@ -82,15 +92,15 @@ class Mesh:
     def synchronize(self) -> None:
         """Wait for every lane's stream."""
         for lane in self.lanes:
-            if lane.stream is not None:
-                lane.stream.synchronize()
+            if lane.cuda:
+                lane.queue().synchronize()
 
     def take_index_errors(self) -> bool:
         """Whether a gather on any CUDA device of the mesh met an index
         outside its source since the last call; joins the lanes first, then
         reads each device's flag once."""
         self.synchronize()
-        cuda = {lane.device for lane in self.lanes if lane.stream is not None}
+        cuda = {lane.device for lane in self.lanes if lane.cuda}
         return any([kernels.take_index_errors(dev) for dev in sorted(cuda, key=str)])
 
 
@@ -120,6 +130,25 @@ def auto_mesh() -> Mesh | None:
     """A mesh over all visible cards, or None when there is at most one (a
     single device needs no split).  What the CLIs' --mesh auto resolves to."""
     return make_mesh() if torch.cuda.device_count() > 1 else None
+
+
+def local_mesh(device) -> Mesh:
+    """The mesh of the default path (`mesh=None`): one lane of `device` on its
+    current stream.  The codec moves its data through it as a mesh's lanes
+    do, so no call site keeps a second, pageable way; only an explicit mesh
+    routes a decode to the device arm."""
+    return Mesh([Lane(resolve(device), own_stream=False)])
+
+
+def host_matrix(live: int, rows: int, width: int, device) -> np.ndarray:
+    """A zeroed host payload matrix bound for `device`, of which only the
+    leading `live` rows may be nonzero.  On CUDA it is [live, width] in pinned
+    memory, so that `upload` copies its rows straight to the card with no
+    staging copy (the array keeps the pinned tensor alive).  On the CPU it is
+    the plain numpy [rows, width] the device path reads in place."""
+    if resolve(device).type == "cuda":
+        return torch.zeros((live, width), dtype=torch.uint8, pin_memory=True).numpy()
+    return np.zeros((rows, width), np.uint8)
 
 
 def pad_width(D: np.ndarray, n_dev: int) -> np.ndarray:
@@ -170,7 +199,7 @@ def stage(lane: Lane, shape: tuple, fill, dtype=torch.uint8, rows: int | None = 
     stream without waiting (PyTorch keeps a pinned block from reuse until the
     copies that read it are done).  A CPU lane's tensor is its own staging."""
     live = shape[0] if rows is None else min(rows, shape[0])
-    if lane.stream is None:
+    if not lane.cuda:
         x = torch.empty(shape, dtype=dtype)
         fill(x[:live])
         x[live:] = 0
@@ -185,22 +214,47 @@ def stage(lane: Lane, shape: tuple, fill, dtype=torch.uint8, rows: int | None = 
     return x
 
 
+def upload(lane: Lane, D, rows: int, live: int) -> torch.Tensor:
+    """A host matrix D (numpy or a CPU tensor, [>= live, ...]) on the lane's
+    device as [rows, ...]: D's leading `live` rows, then zeros.  D's rows at or
+    past `live` are zero (or absent), so they are neither copied nor uploaded.
+
+    On a CUDA lane the live rows cross in one `non_blocking` copy on the
+    lane's stream: straight out of D where they are pinned and contiguous
+    (`host_matrix`; PyTorch then keeps that pinned block from reuse until the
+    copy is done), else out of a pinned staging copy (`stage`).  A CPU lane
+    reads D in place where it has exactly `rows` contiguous rows, else copies."""
+    src = torch.as_tensor(D)
+    head = src[:live]
+    shape = (rows, *src.shape[1:])
+    if not lane.cuda and src.shape[0] == rows and src.is_contiguous():
+        return src
+    if not (lane.cuda and head.is_contiguous() and head.is_pinned()):
+        return stage(lane, shape, lambda h: h.copy_(head), src.dtype, rows=live)
+    with lane.on():
+        x = torch.empty(shape, dtype=src.dtype, device=lane.device)
+        x[:live].copy_(head, non_blocking=True)
+        if live < rows:
+            x[live:].zero_()
+    return x
+
+
 def fetch(pairs) -> list[np.ndarray]:
     """Host copies of contiguous tensors, each on its lane: every download is
     started on its lane's stream into a pinned destination, then one wait per
     stream.  pairs: [(lane, tensor)]."""
     out = []
     for lane, x in pairs:
-        if lane.stream is None:
+        if not lane.cuda:
             out.append(x)
             continue
-        with torch.cuda.stream(lane.stream):
+        with torch.cuda.stream(lane.queue()):
             h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
             h.copy_(x, non_blocking=True)
         out.append(h)
     for lane in {lane for lane, _ in pairs}:
-        if lane.stream is not None:
-            lane.stream.synchronize()
+        if lane.cuda:
+            lane.queue().synchronize()
     return [h.numpy() for h in out]
 
 
@@ -274,24 +328,33 @@ class Sharded:
         return torch.cat([p.to(dev) for p in parts], dim=self.axis)
 
 
-def shard_width(D: np.ndarray, mesh: Mesh, block: int | None = None, live_rows: int | None = None) -> Sharded:
-    """Place a host payload matrix [rows, t] with its width split over the
-    mesh: lane i holds the columns `shard_ranges(t, n, block)[i]`, uploaded
-    on its stream from a pinned staging copy of that (strided) column range.
-    The staging copy is host work of the whole matrix, inside whatever clock
-    runs around this call.
+def shard_width(D: np.ndarray, mesh: Mesh, block: int | None = None, live_rows: int | None = None,
+                rows: int | None = None) -> Sharded:
+    """Place a host payload matrix D [n, t] with its width split over the
+    mesh: lane i holds the columns `shard_ranges(t, lanes, block)[i]` as a
+    [rows, hi - lo] tensor (rows: default n), uploaded on its stream
+    (`upload`).  A lane with the whole width of a pinned D takes its rows in
+    one copy; a column range is strided, so it goes through a pinned staging
+    copy, which is host work of the whole matrix inside whatever clock runs
+    around this call.
 
     `live_rows`: rows at or past it are known to be zero (an encoder's D
     holds K payload rows of M_pad); they are neither staged nor uploaded but
     zeroed on the device."""
     check_mesh(mesh)
-    src = torch.from_numpy(D)
+    src = torch.as_tensor(D)
     ranges = shard_ranges(D.shape[1], mesh.size, block)
-    live = D.shape[0] if live_rows is None else live_rows
-    parts = [None if lo == hi else
-             stage(lane, (D.shape[0], hi - lo), lambda h, lo=lo, hi=hi: h.copy_(src[: h.shape[0], lo:hi]), rows=live)
+    rows = D.shape[0] if rows is None else rows
+    live = min(D.shape[0], rows) if live_rows is None else live_rows
+    parts = [None if lo == hi else upload(lane, src[:, lo:hi], rows, live)
              for lane, (lo, hi) in zip(mesh.lanes, ranges)]
     return Sharded(mesh, parts, ranges, axis=1)
+
+
+def whole(x: torch.Tensor) -> Sharded:
+    """An unsharded [rows, t] tensor as a width-split array of one part, on
+    the local mesh of its device (the default path's view of it)."""
+    return Sharded(local_mesh(x.device), [x], [(0, x.shape[1])], axis=1)
 
 
 def shard_stack(n_items: int, mesh: Mesh, shape: tuple, fill, dtype=torch.uint8) -> Sharded:

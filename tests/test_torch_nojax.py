@@ -72,6 +72,13 @@ with tempfile.TemporaryDirectory() as d:
     assert dst.read_bytes() == src.read_bytes()
 assert gather_probe.run_shape("v2", (301, 37, 5, 64, 0.3, "tiny"), rng, "cpu")["exact"]
 assert bench.main(["--device", "cpu", "--ks", "10", "--T", "16", "--iters", "1", "--blocks", "2", "--arms"]) == 0
+# the retuning sweeps, each at a tiny point
+from nanorq_tpu_torch.tools import bsweep, cb_probe, replay_stage_prof, slotfill_probe, wb_probe
+tiny = ["--T", "16", "--device", "cpu"]
+assert all(ln["C_equal"] for ln in cb_probe.main(["100", "64", "128", "--blocks", "1", "--iters", "1", *tiny]))
+assert slotfill_probe.main(["300"]) and bsweep.main(["100", "1", "--iters", "1", *tiny])
+assert all(ln["exact"] for ln in wb_probe.main(["300", "--bs", "1", "--iters", "1", *tiny]))
+assert replay_stage_prof.main(["100", "1", "1", *tiny])
 print("jax" in sys.modules, sorted(m for m in sys.modules if m.split(".")[0] == "nanorq_tpu"))
 """
 

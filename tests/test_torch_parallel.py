@@ -216,8 +216,10 @@ def test_w_step_sharded_equals_jax_and_unsharded(native, n):
 
 
 def test_encoder_mesh_equals_jax_and_unsharded():
-    """Encoder.encode_batch(mesh=) at T = 100, which 8 does not divide (the
-    zero-padded width, cut into 13-byte shards: the kernels' byte lanes)."""
+    """Encoder.encode_batch(mesh=) at T = 100, which 8 does not divide: the
+    block's own width, not padded (the JAX package pads it to 104), cut into
+    shards of 13 and 12 bytes (the kernels' byte lanes), equals the padded
+    JAX result and the unsharded port bit for bit."""
     K, T = 40, 100
     data = np.random.default_rng(7).integers(0, 256, K * T, dtype=np.uint8)
     esis = np.r_[np.arange(0, K, 3), np.arange(K, K + 9)]
@@ -226,7 +228,8 @@ def test_encoder_mesh_equals_jax_and_unsharded():
     enc = Encoder(data.size, T, Al=1, device="cpu")
     got = enc.encode_batch(0, esis, MemoryIO(data), mesh=mesh)
     C = enc._blocks[0].C
-    assert isinstance(C, tmesh.Sharded) and C.ranges == [(i * 13, (i + 1) * 13) for i in range(8)]
+    assert isinstance(C, tmesh.Sharded) and [hi - lo for lo, hi in C.ranges] == [13] * 4 + [12] * 4
+    assert C.ranges[-1][1] == T and all(p.shape[1] == hi - lo for p, (lo, hi) in zip(C.parts, C.ranges))
     want = JEncoder(data.size, T, Al=1).encode_batch(0, esis, JMemoryIO(data), mesh=jmesh.make_mesh())
     assert np.array_equal(got, ref) and np.array_equal(got, want)
     # the sharded C then serves a call with no mesh, and one with another mesh: gathered, explicitly

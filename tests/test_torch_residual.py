@@ -99,11 +99,12 @@ def test_arms_equal_jax_and_source(backend, case):
 
 def test_f1_warm_auto_runs_on_the_device():
     """F1: after a device decode has cached the patterns' plans, "auto" sends
-    every block to the device arm and none to a host arm."""
-    data, oti, pk = _packets(100, nb=3, seed=5)
+    every block to the device arm and none to a host arm (K' = 511: above the
+    port's warm threshold, `api._RES_HOST_WARM_MAX`)."""
+    data, oti, pk = _packets(500, nb=3, seed=5)
     tcache.clear_decoder_cache()
     before = _counts()
-    _decode(Decoder(*oti, device="cpu"), data, pk, backend="auto")  # cold: K' <= 256, res_host
+    _decode(Decoder(*oti, device="cpu"), data, pk, backend="auto")  # cold: K' <= 560, res_host
     assert _moved(before) == {"repair_res_host_blocks": 3}
     before = _counts()
     _decode(Decoder(*oti, device="cpu"), data, pk, backend="device")
@@ -111,6 +112,24 @@ def test_f1_warm_auto_runs_on_the_device():
     before = _counts()
     assert np.array_equal(_decode(Decoder(*oti, device="cpu"), data, pk, backend="auto"), data)
     assert _moved(before) == {"repair_device_blocks": 3}
+
+
+@pytest.mark.parametrize("K,cold,warm", [(100, "res_host", "res_host"), (400, "res_host", "res_host"),
+                                         (500, "res_host", "device"), (700, "host", "device")])
+def test_auto_rule_routes_by_kp(K, cold, warm):
+    """The port's "auto" rule (set from the H100 host's bench, a deliberate
+    difference from the JAX package): cold patterns on "res_host" up to
+    K' = 560 and on "host" above; warm ones (device plans cached) on
+    "res_host" up to K' = 440 and on the device above.  K' = 101, 405, 511
+    and 703."""
+    data, oti, pk = _packets(K, nb=2, seed=K)
+    tcache.clear_decoder_cache()
+    for state, arm in (("cold", cold), ("warm", warm)):
+        if state == "warm":
+            _decode(Decoder(*oti, device="cpu"), data, pk, backend="device")  # caches every plan
+        before = _counts()
+        assert np.array_equal(_decode(Decoder(*oti, device="cpu"), data, pk, backend="auto"), data)
+        assert _moved(before) == {f"repair_{arm}_blocks": 2}
 
 
 @pytest.mark.parametrize("K", [100, 1000])

@@ -1,0 +1,134 @@
+"""The port's retuning sweeps (`nanorq_tpu_torch/tools/`: cb_probe,
+slotfill_probe, bsweep, wb_probe, replay_stage_prof) at a tiny size on the
+CPU: their lines, cb_probe's bit-identical C across chunk sizes (and its
+refusal of a C that differs), and slotfill_probe's counts against the JAX
+package's `tools/slotfill_probe.py` at the same K."""
+
+import ast
+import contextlib
+import io
+import json
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from nanorq_tpu_torch.rfc.params import params_init
+from nanorq_tpu_torch.tools import bsweep, cb_probe, replay_stage_prof, slotfill_probe, wb_probe
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+TINY = ["--T", "16", "--device", "cpu"]
+PRINTED = ("device", "power_limit_w", "timing")
+
+
+def _run(main, argv):
+    """The tool's lines, returned and printed alike."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        lines = main(argv)
+    assert [json.loads(x) for x in out.getvalue().splitlines()] == lines
+    return lines
+
+
+def _timed(line):
+    return line["ms"] > 0 and line["graph_ms"] is None and line["timing"] == "perf_counter" and line["device"] == "cpu"
+
+
+def test_cb_probe_gives_one_c_across_chunk_sizes():
+    lines = _run(cb_probe.main, ["300", "64", "128", "256", "--blocks", "2", "--iters", "1", *TINY])
+    assert [ln["CB"] for ln in lines] == [64, 128, 256] and all(ln["C_equal"] and _timed(ln) for ln in lines)
+    assert [ln["chunks"] for ln in lines] == [-(-lines[0]["chunks"] * 64 // cb) for cb in (64, 128, 256)]
+    assert [ln["default_cb"] for ln in lines] == [False, False, True]
+
+
+def test_cb_probe_refuses_a_c_that_differs(monkeypatch):
+    """A replay that came out differently at the second CB is an error."""
+    real = cb_probe.replay
+
+    def off_at_128(arr, D):
+        C = real(arr, D)
+        if arr["CB"] == 128:
+            C[3, 5] ^= 1
+        return C
+
+    monkeypatch.setattr(cb_probe, "replay", off_at_128)
+    with pytest.raises(AssertionError, match="CB=128"):
+        _run(cb_probe.main, ["300", "64", "128", "--blocks", "1", "--iters", "1", *TINY])
+
+
+def _jax_slotfill(K: int) -> dict:
+    """grid -> (slots, launches, segs, slots by width) as tools/slotfill_probe.py prints them."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    r = subprocess.run([sys.executable, str(REPO / "tools" / "slotfill_probe.py"), str(K)], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    got, lines = {}, r.stdout.splitlines()
+    for head, widths in zip(lines[::2], lines[1::2]):
+        m = re.match(rf"K={K} (\w+): slots (\d+) fill [\d.]+ launches (\d+) segs (\d+)", head)
+        by_w = ast.literal_eval(widths.split("slots by width:", 1)[1].strip())
+        got[m[1]] = (int(m[2]), int(m[3]), int(m[4]), {str(w): n for w, n in by_w.items()})
+    return got
+
+
+@pytest.mark.parametrize("K", [1000, 3000])
+def test_slotfill_probe_counts_as_the_jax_tool(K):
+    want = _jax_slotfill(K)
+    lines = _run(slotfill_probe.main, [str(K)])
+    got = {ln["grid"]: (ln["slots"], ln["launches"], ln["segs"], ln["slots_by_width"]) for ln in lines}
+    assert set(want) == {"pow2", "hybrid64"} and set(got) == {"dense", "hybrid64", "pow2"}
+    for grid in want:
+        assert got[grid] == want[grid], grid
+    assert [ln["default"] for ln in lines if ln["grid"] == "hybrid64"] == [True]
+    from nanorq_tpu_torch.precode import device_schedule
+
+    assert device_schedule.WIDTH_GRID == device_schedule._WQ_GRIDS["hybrid64"]  # put back
+
+
+def test_bsweep_lines():
+    lines = _run(bsweep.main, ["100", "1", "3", "--iters", "1", *TINY])
+    assert [(ln["B"], ln["stage"]) for ln in lines] == [(1, "replay"), (1, "replay+lt"), (3, "replay"), (3, "replay+lt")]
+    assert all(_timed(ln) and ln["t"] == 16 * ln["B"] and ln["gbps"] > 0 for ln in lines)
+
+
+def test_wb_probe_forms_are_exact():
+    lines = _run(wb_probe.main, ["300", "--bs", "1", "2", "--iters", "1", *TINY])
+    forms = ("W", "W_stacked", "canonical", "own")
+    assert [(ln["B"], ln["form"]) for ln in lines] == [(b, f) for b in (1, 2) for f in forms]
+    assert all(ln["exact"] and _timed(ln) for ln in lines)
+    assert all(ln["slots"] > 0 for ln in lines if ln["form"] in ("canonical", "own"))
+
+
+def test_replay_stage_prof_stages():
+    lines = _run(replay_stage_prof.main, ["300", "2", "1", *TINY])
+    head, stages = lines[0], lines[1:]
+    assert head["Kp"] == 301 and head["chunks"] == head["Lpad"] // head["CB"] and 0 <= head["range_fill"] <= 1
+    assert [ln["stage"] for ln in stages] == ["full", "take_rows", "tri", "tri_gather", "tri_matmul", "bsel",
+                                               "hdpc", "vinv", "wut", "mid", "out_sel", "lt"]
+    assert all(_timed(ln) or ln["ms"] >= 0 for ln in stages) and all(set(PRINTED) <= set(ln) for ln in lines)
+
+
+def test_replay_stages_compose_to_the_replay():
+    """Stages 2-5 of the profile, once each in the replay's order from where
+    `stages` leaves its buffers, give the replay's C: the profile times what
+    the replay runs."""
+    from nanorq_tpu_torch.codec.cache import encoder_schedule
+    from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
+    from nanorq_tpu_torch.ops.replay import device_arrays, replay
+
+    P = params_init(300)
+    ds = encoder_schedule(P.Kp)
+    arr = device_arrays(ds, "cpu")
+    D = torch.zeros((ds.M_pad, 32), dtype=torch.uint8)
+    D[:300] = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (300, 32), dtype=np.uint8))
+    plan = lt_plan(np.arange(P.Kp, dtype=np.uint32), P, "cpu")
+    C = replay(arr, D)
+    st = replay_stage_prof.stages(arr, D, plan)
+    for name in ("bsel", "hdpc", "vinv", "wut"):
+        st[name]()
+    assert torch.equal(st["out_sel"](), C) and torch.equal(st["full"](), C)
+    assert torch.equal(st["lt"](), lt_combine(C, plan))
