@@ -26,11 +26,17 @@ Phases, each printing its own lines and its seconds:
 3. encode: an object of Z=200 blocks x K=1000 x T=1280 through the port's
    Encoder and codec.batch (generate + 200 repair symbols per block), the
    object loaded into pinned memory (`load_s`) and its K live rows uploaded
-   in one copy on the default path;
+   in one copy on the default path; cold, second and warm: the replay is
+   the encoder schedule's program (ops/program.py), which the cold run
+   (eager) leaves uncaptured, the second captures and the warm replays; the
+   device memory allocated after the phase and at its peak;
 4. decode: 6% source loss + 5% repair overhead per block, recovered by
-   Decoder.repair_all(backend="device"); the warm run must take one K1 and
+   Decoder.repair_all(backend="device") (at K=1000 every plan is a dense-W
+   one; a structured plan would replay its program from its second
+   replay on); the warm run must take one K1 and
    one K2 launch per stacked batch of blocks; its first K1 launch (a stacked
    gather at t = 1280) is timed after the main path as the encode's are;
+   the device memory as in phase 3;
 5. checks and times: the systematic property on every block, one block
    against the numpy oracle (nanorq_tpu_torch.host), the decoded bytes, the
    kernel launch counts of the main path (phases 3-4: 17 K1 launches per
@@ -51,15 +57,17 @@ Phases, each printing its own lines and its seconds:
    device arm), byte-compared with the file;
 9. bench: nanorq_tpu_torch.bench at K = 1000 and K = 100 with every decode
    arm cold and warm (--arms --iters 4 --deadline 120), in this process: one
-   line per K with every key, a number or null, `dec_plan` "W" at K = 1000;
-   its lines are printed again as `[bench] ...`;
+   line per K with every key, a number or null, `dec_plan` "W" at K = 1000,
+   the program counters of each K (`bench.PROGRAM_KEYS`) with at least one
+   capture and one replay; its lines are printed again as `[bench] ...`;
 10. mesh: the object of phase 3 and the deliveries of phase 4 over lanes
    (nanorq_tpu_torch/parallel: a lane is a card, a stream of its own and
    pinned staging) -- over `make_mesh()` (every visible card, a lane each) and
    over 1, 2 and 4 lanes dealt round-robin over the cards (on one card: lanes
-   of cuda:0).  `batch.generate(mesh=)` + `batch.repair_symbols(mesh=)` three
+   of cuda:0).  `batch.generate(mesh=)` + `batch.repair_symbols(mesh=)` four
    times in turn with the unsharded path (`mesh=None`), host clock between
-   synchronisations, the first round of a mesh apart (it pins its staging),
+   synchronisations, the first two rounds of a mesh apart (the first pins
+   its staging, the second captures its lanes' programs),
    every result held bit for bit against phase 3's repair symbols; the upload
    alone: the default path's one copy of the live rows, a pageable copy of
    every row, 4 lanes with every row and with the K live rows, the host's
@@ -70,12 +78,23 @@ Phases, each printing its own lines and its seconds:
    on `make_mesh()`, then warm with `mesh=None` and 4 lanes in turn, twice,
    every run restoring the object; `parallel._dryrun.run(4, device)` in both
    modes; no gather index flagged on any card.  One `[mesh]` line holds the
-   times beside the card's name and power limit;
+   times and the device memory (as in phase 3) beside the card's name and
+   power limit;
 11. sweeps: each retuning sweep of nanorq_tpu_torch/tools at one small point
    (K = 1000, 4 blocks): cb_probe over two chunk sizes, C bit-identical;
-   slotfill_probe; bsweep; wb_probe, every form exact; replay_stage_prof.
+   slotfill_probe; bsweep; wb_probe, every form exact; replay_stage_prof;
+12. program: the replay through the schedule's program (one captured CUDA
+   graph between the prologue's two gathers and the epilogue's one) against
+   the eager replay, bit for bit, at K=1000 B=32, K=10000 B=4 and 16,
+   K=50000 B=1 and 4 (encoder schedules) and on one warm structured decode
+   pattern at K=50000, one block: both timed in turn (CUDA events around
+   back-to-back calls), after one eager call the capturing call and the
+   capture by the host clock,
+   the launches of one call; then the program counters and the bytes the
+   program cache holds.
 
-Each of the paths 3-4, 6, 7, 8, 9, 10 and 11 runs with the launch counts set
+Phases 3, 9 and 10 replay the encoder schedule through its program, as the
+codec does on a card.  Each of the paths 3-4, 6, 7, 8, 9, 10, 11 and 12 runs with the launch counts set
 to 0 just before it and read just after, and fails if a kernel it runs never
 launched.
 Any failure raises and the script exits non-zero.  The last line is one JSON
@@ -379,11 +398,11 @@ def phase_build() -> None:
 
 
 def phase_encode(enc, batch, dev) -> tuple[dict, list[float]]:
-    """generate + repair_symbols for the whole object, cold then warm."""
+    """generate + repair_symbols for the whole object: cold, second, warm."""
     from nanorq_tpu_torch.codec import batch as tbatch
 
     secs = []
-    for _ in range(2):  # cold (schedule upload, LT plan), then warm
+    for _ in range(ENCODE_RUNS):  # cold (schedule upload, LT plan), the program's capture, warm
         batch.C = None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -391,6 +410,19 @@ def phase_encode(enc, batch, dev) -> tuple[dict, list[float]]:
         reps = tbatch.repair_symbols(batch, N_REPAIR, dev)  # fetched to the host
         secs.append(time.perf_counter() - t0)
     return reps, secs
+
+
+ENCODE_RUNS = 3  # phase 3's runs: cold, second (captures the program), warm
+
+
+def _mem() -> str:
+    """The device memory allocated now and at its peak since the last reset
+    (GiB), and what the program cache holds (MB), as one JSON object."""
+    from nanorq_tpu_torch.ops import program
+
+    return json.dumps({"allocated_GiB": round(torch.cuda.memory_allocated() / 2**30, 3),
+                       "peak_GiB": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+                       "programs_MB": round(program.cached_bytes() / 2**20, 1)})
 
 
 def _deliveries(seed: int) -> list:
@@ -576,6 +608,10 @@ def phase_bench() -> dict:
                       "e2e_res_host", "e2e_host", *(f"e2e_{arm}_warm" for arm in bench.ARMS))
         if not line["partial"] and not all(line[c] and line[c] > 0 for c in main_cells):
             raise AssertionError(f"bench K={k}: a cell is missing from a whole run: { {c: line[c] for c in main_cells} }")
+        if not (line["replay_program_capture"] >= 1 and line["replay_program_replay"] >= 1
+                and line["capture_ms"] > 0):
+            raise AssertionError(f"bench K={k}: the encoder's program was not captured and replayed: "
+                                 f"{ {p: line[p] for p in bench.PROGRAM_KEYS} }")
     if per_k[1000]["dec_plan"] != "W":
         raise AssertionError(f"bench K=1000 decoded by the {per_k[1000]['dec_plan']} plan, expected the dense-W one")
     return per_k
@@ -597,7 +633,7 @@ def phase_mesh(enc, batch, data, reps, dev, deliveries, smi: str) -> dict:
         return any([m.take_index_errors() for m in meshes.values()])
 
     enc_s = {name: [] for name, _ in configs}
-    for rnd in range(3):  # in turn; a mesh's first round pins its staging
+    for rnd in range(4):  # in turn; a mesh's first round pins its staging, its second captures its programs
         for name, mesh in configs:
             batch.C = None
             _sync_all()
@@ -682,11 +718,12 @@ def phase_mesh(enc, batch, data, reps, dev, deliveries, smi: str) -> dict:
     fmt = lambda xs: [round(x, 4) for x in xs]  # noqa: E731
     line = {"card": smi, "count": n, "bytes": int(data.size),
             "encode_s": {"none": fmt(enc_s["none"]),
-                         **{f"{name}_first": fmt(enc_s[name][:1]) for name in meshes},
-                         **{f"{name}_warm": fmt(enc_s[name][1:]) for name in meshes}},
+                         **{f"{name}_first": fmt(enc_s[name][:2]) for name in meshes},
+                         **{f"{name}_warm": fmt(enc_s[name][2:]) for name in meshes}},
             "upload_s": {k: fmt(v) for k, v in up_s.items()},
             "encode_step_ms": {k: [round(x, 2) for x in v] for k, v in step_ms.items()},
-            "decode_s": {k: fmt(v) for k, v in dec_s.items()}, "dryrun_s": round(dry_s, 2)}
+            "decode_s": {k: fmt(v) for k, v in dec_s.items()}, "dryrun_s": round(dry_s, 2),
+            "mem": json.loads(_mem())}
     print("[mesh] " + json.dumps(line), flush=True)
     return line
 
@@ -719,6 +756,95 @@ def phase_sweeps() -> dict:
         raise AssertionError("a sweep's result differs")
     torch.cuda.empty_cache()
     return got
+
+
+# phase 12: (K, blocks) of the encoder schedules the program is held and timed at
+PROGRAM_SHAPES = ((1000, 32), (10000, 4), (10000, 16), (50000, 1), (50000, 4))
+PROGRAM_DECODE = (50000, 1)  # and one warm structured decode pattern, one block (t = T), as repair_all replays it
+PROGRAM_ITERS = 10
+
+
+def _decode_pattern(K: int, seed: int):
+    """(params, received ISIs, overhead) of a 6% loss + 5% overhead pattern (bench.loss_pattern)."""
+    from nanorq_tpu_torch import bench
+    from nanorq_tpu_torch.rfc.params import params_init
+
+    P = params_init(K)
+    gaps, nrep = bench.loss_pattern(np.random.default_rng(seed), K)
+    ov = nrep - gaps.size
+    isis = np.arange(P.Kp + ov, dtype=np.uint32)
+    rep = (np.arange(K, K + nrep) + (P.Kp - K)).astype(np.uint32)
+    isis[gaps] = rep[: gaps.size]
+    isis[P.Kp:] = rep[gaps.size:]
+    return P, isis, ov
+
+
+def phase_program(dev, smi: str) -> list:
+    """Phase 12: the replay through the schedule's program (ops/program.py:
+    the prologue's two gathers, one captured CUDA graph, the epilogue's
+    gather) against the eager replay (ops/replay.replay), bit for bit, at
+    each of PROGRAM_SHAPES and on one warm structured decode schedule: after
+    one eager call, the program call that captures by the host clock with a
+    wait after it, and the capture's own host time; then eager and program
+    in turn, twice each, CUDA events around PROGRAM_ITERS back-to-back calls; the
+    launches of one call (the same on both paths), the program's bytes.
+    One `[program]` line per shape, then the counters and the bytes the
+    program cache holds."""
+    from nanorq_tpu_torch.codec import cache as tcache
+    from nanorq_tpu_torch.ops import kernels, program
+    from nanorq_tpu_torch.ops import replay as treplay
+    from nanorq_tpu_torch.rfc.params import params_init
+    from nanorq_tpu_torch.utils import stats
+
+    cases = [("encode", K, B) for K, B in PROGRAM_SHAPES] + [("decode", *PROGRAM_DECODE)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lines = []
+    for kind, K, B in cases:
+        rng = np.random.default_rng(SEED + K + B)
+        if kind == "encode":
+            ds, live = tcache.encoder_schedule(params_init(K).Kp), K
+        else:
+            P, isis, ov = _decode_pattern(K, SEED + K)
+            ds, live = tcache.decoder_schedule(P, isis, ov), P.Kp + ov
+            if ds is None:
+                raise AssertionError(f"the K={K} decode pattern did not solve")
+        arr = treplay.device_arrays(ds, dev)
+        t = B * T
+        D = torch.zeros((ds.M_pad, t), dtype=torch.uint8, device=dev)
+        D[:live] = torch.from_numpy(rng.integers(0, 256, (live, t), dtype=np.uint8)).to(dev)
+        want = treplay.replay(arr, D)
+        program.replay(arr, D)  # a width's first replay runs eagerly; the second captures
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = program.replay(arr, D)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {n: kernels.LAUNCHES[n] - before[n] for n in before if kernels.LAUNCHES[n] != before[n]}
+        prog = program.programs(arr)[(t, stream)]
+        if not torch.equal(got, want):
+            raise AssertionError(f"program {kind} K={K} B={B}: C differs from the eager replay")
+        ms = {"eager": [], "program": []}
+        for which in ("eager", "program", "program", "eager"):
+            fn = treplay.replay if which == "eager" else program.replay
+            ms[which].append(_cuda_ms(lambda: fn(arr, D), PROGRAM_ITERS))
+        if not torch.equal(program.replay(arr, D), want):
+            raise AssertionError(f"program {kind} K={K} B={B}: a replay differs from the eager replay")
+        line = {"kind": kind, "K": K, "Kp": params_init(K).Kp, "B": B, "t": t, "exact": True,
+                "eager_ms": [round(x, 4) for x in ms["eager"]], "program_ms": [round(x, 4) for x in ms["program"]],
+                "speedup": round(min(ms["eager"]) / min(ms["program"]), 3), "launches": launches,
+                "first_call_s": round(first_s, 4), "capture_s": round(prog.capture_s, 4),
+                "program_MB": round(prog.nbytes / 2**20, 1), "card": smi}
+        _say("program", **{k: json.dumps(v) if isinstance(v, (dict, list, str)) else v for k, v in line.items()})
+        lines.append(line)
+        del D, want, got, prog
+    c = stats.snapshot()["counters"]
+    _say("program", counters=json.dumps({k: c.get(k, 0) for k in ("replay_program_capture", "replay_program_replay",
+                                                                    "replay_program_evict", "replay_compile_new",
+                                                                    "replay_compile_hit")}),
+         cached_MB=round(program.cached_bytes() / 2**20, 1),
+         allocated_GiB=round(torch.cuda.memory_allocated() / 2**30, 2))
+    return lines
 
 
 def _short(name: str) -> str:
@@ -840,24 +966,27 @@ def main() -> None:
     load_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()  # the main path starts here
     reps, enc_s = phase_encode(enc, batch, dev)  # phase 3
     enc_launches = dict(kernels.LAUNCHES)
-    _say("encode", blocks=Z, K=K, T=T, bytes=F, load_s=f"{load_s:.3f}",
-         cold_s=f"{enc_s[0]:.4f}", warm_s=f"{enc_s[1]:.4f}", launches=json.dumps(enc_launches))
+    _say("encode", blocks=Z, K=K, T=T, bytes=F, load_s=f"{load_s:.3f}", cold_s=f"{enc_s[0]:.4f}",
+         second_s=f"{enc_s[1]:.4f}", warm_s=f"{enc_s[2]:.4f}", launches=json.dumps(enc_launches), mem=_mem())
     deliveries = _deliveries(SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
     outs, dec_s, kinds, ngaps, dec_gather = phase_decode(enc, data, reps, dev, deliveries)  # phase 4
     main_launches = dict(kernels.LAUNCHES)  # the main path ends here
+    dec_mem = _mem()
     if kernels.take_index_errors(dev):
         raise AssertionError("a gather of the main path met an index outside its source")
-    if enc_launches["gather_xor"] != 2 * gather_launches.ENCODE_LAUNCHES:
-        raise AssertionError(f"cold + warm encode ran {enc_launches['gather_xor']} K1 launches, "
-                             f"expected 2 x {gather_launches.ENCODE_LAUNCHES}")
+    if enc_launches["gather_xor"] != ENCODE_RUNS * gather_launches.ENCODE_LAUNCHES:
+        raise AssertionError(f"phase 3's encodes ran {enc_launches['gather_xor']} K1 launches, "
+                             f"expected {ENCODE_RUNS} x {gather_launches.ENCODE_LAUNCHES}")
     dec_launches = {n: main_launches[n] - enc_launches[n] for n in main_launches}
     _k1_line("decode", gather_launches.measure(dec_gather, 20))
     del dec_gather
     _say("decode", loss=0.06, overhead=0.05, gaps=ngaps, cold_s=f"{dec_s[0]:.4f}",
-         warm_s=f"{dec_s[1]:.4f}", plans=json.dumps(kinds), launches=json.dumps(dec_launches))
+         warm_s=f"{dec_s[1]:.4f}", plans=json.dumps(kinds), launches=json.dumps(dec_launches), mem=dec_mem)
     _say("phase", name="encode+decode", seconds=f"{time.perf_counter() - t0:.2f}")
 
     t0 = time.perf_counter()
@@ -868,7 +997,7 @@ def main() -> None:
         raise AssertionError(f"decode missed a kernel: {dec_launches}")
     _say("checks", systematic_blocks=Z, oracle_blocks=nb, oracle_s=f"{oracle_s:.2f}",
          decode_bytes_equal=True, launches=json.dumps(main_launches))
-    _say("times", card=json.dumps(smi), encode_cold_mbps=_mbps(F, enc_s[0]), encode_warm_mbps=_mbps(F, enc_s[1]),
+    _say("times", card=json.dumps(smi), encode_cold_mbps=_mbps(F, enc_s[0]), encode_warm_mbps=_mbps(F, enc_s[-1]),
          decode_cold_mbps=_mbps(F, dec_s[0]), decode_warm_mbps=_mbps(F, dec_s[1]),
          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / (1 << 30):.2f}")
     phase_profile(enc, batch, data, reps, dev, deliveries)
@@ -914,7 +1043,7 @@ def main() -> None:
         raise AssertionError(f"the bench missed a kernel: {bench_launches}")
     b1000 = bench_lines[1000]  # beside phases 3, 4 and 7, in BASELINE.md's unit (the bench's arms are all cold)
     _say("bench", ks=json.dumps(list(bench_lines)), launches=json.dumps(bench_launches),
-         encode_e2e_mbps=b1000["encode_e2e_mbps"], phase3_encode_warm_mbps=_mbps(F, enc_s[1]),
+         encode_e2e_mbps=b1000["encode_e2e_mbps"], phase3_encode_warm_mbps=_mbps(F, enc_s[-1]),
          e2e_device_mbps=b1000["e2e_device_mbps"], phase4_device_cold_mbps=_mbps(F, dec_s[0]),
          **{f"e2e_{arm}_mbps": b1000[f"e2e_{arm}_mbps"] for arm in ("res", "res_host", "host")},
          **{f"phase7_{arm}_cold_mbps": _mbps(F, arm_s[f"{arm}_cold"]) for arm in ("res", "res_host", "host")},
@@ -924,6 +1053,7 @@ def main() -> None:
          seconds=f"{time.perf_counter() - t0:.2f}")
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()  # the lanes start here
     mesh_line = phase_mesh(enc, batch, data, reps, dev, deliveries, smi)  # phase 10
     mesh_launches = dict(kernels.LAUNCHES)  # and end here
@@ -945,6 +1075,16 @@ def main() -> None:
     if kernels.take_index_errors(dev):
         raise AssertionError("a gather of the sweeps met an index outside its source")
     _say("sweeps", launches=json.dumps(sweep_launches), seconds=f"{time.perf_counter() - t0:.2f}")
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()  # the program's comparison starts here
+    phase_program(dev, smi)  # phase 12
+    program_launches = dict(kernels.LAUNCHES)  # and ends here
+    if not all(program_launches[n] > 0 for n in ("gather_xor", "gf2_matmul", "gf256_matmul")):
+        raise AssertionError(f"the program phase missed a kernel: {program_launches}")
+    if kernels.take_index_errors(dev):
+        raise AssertionError("a gather of the program phase met an index outside its source")
+    _say("programs", launches=json.dumps(program_launches), seconds=f"{time.perf_counter() - t0:.2f}")
     _say("phase", name="all", seconds=f"{time.perf_counter() - t_start:.2f}")
 
     print(json.dumps({"kernels": [

@@ -15,7 +15,10 @@ independent blocks side by side: the reference's 256 MiB object,
 max(1, 256 MiB // (K*T)) blocks, at most Z_MAX (`--blocks` overrides).
 
 Cells per K:
-- encode_replay  intermediate symbols only (`ops.replay.replay`), data on the device
+- encode_replay  intermediate symbols only, data on the device: the encoder
+                 schedule's program on a card (`ops.program.replay`: one
+                 captured CUDA graph between two gathers and one after),
+                 eagerly on the CPU; every replay below takes the same route
 - encode         replay + LT combine of all K' symbols, data on the device
 - encode_e2e     the same object through `codec.batch.generate` and
                  `repair_symbols` (K // 5 repair symbols a block) from host
@@ -24,7 +27,10 @@ Cells per K:
                  pair "without and with the copies".  The object's matrix is
                  held as `codec.batch.load_object` holds it
                  (`parallel.mesh.host_matrix`: pinned on a card)
-- encode_fresh   a cold encoder on a 256 MiB object: fresh_ms + replays
+- encode_fresh   a cold encoder on a 256 MiB object: fresh_ms + its
+                 batches, the first at a warm eager encode's cost, the
+                 program's capture (`capture_ms`) where the object holds two
+                 whole batches of this width, the rest at `encode`'s
 - decode0        0% loss: batched ingestion + no-op repair through Decoder
 - decode         6% loss + 5% overhead, the warm plan of one pattern applied
                  to the whole batch on the device (`dec_plan`: "W", the dense
@@ -48,8 +54,15 @@ Cells per K:
   `repair_symbols(mesh=)`, and e2e_device_mesh, decode_e2e through
   `repair_all(backend="device", mesh=)`, in turn with the other arms
 
+Program counters per K (`PROGRAM_KEYS`, beside the cells): `capture_ms`,
+the host time of the encoder program's capture at the K's width (null on the
+CPU, where nothing is captured), and the K's counts of program captures,
+program replays, and schedule signatures new and seen before
+(`replay_compile_new` / `replay_compile_hit`, once per schedule).
+
 Timing: device-resident cells are timed between CUDA events over `iters`
-back-to-back calls after one warm-up call (`"timing": "events"`; on
+back-to-back calls after two warm-up calls (on a card the second captures
+the replay's program; `"timing": "events"`; on
 `--device cpu` the host clock, `"perf_counter"`); a region shorter than 20
 launch overheads (measured at start) is repeated with more calls, and the
 cell is null where that cannot be reached.  The end-to-end cells (encode_e2e,
@@ -84,7 +97,9 @@ from nanorq_tpu_torch.codec.oti import make_tag
 from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.io.ioctx import MemoryIO
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
-from nanorq_tpu_torch.ops.replay import device_arrays, replay
+from nanorq_tpu_torch.ops.program import programs, replay
+from nanorq_tpu_torch.ops.replay import device_arrays
+from nanorq_tpu_torch.ops.replay import replay as eager_replay
 from nanorq_tpu_torch.parallel.mesh import host_matrix, local_mesh, make_mesh, upload
 from nanorq_tpu_torch.precode.device_schedule import _FREEZE_AFTER, compile_device
 from nanorq_tpu_torch.precode.matrix import binary_rows
@@ -120,6 +135,9 @@ KEYS = ("encode", "encode_mbps", "encode_replay", "encode_e2e", "encode_e2e_mbps
         "batch_MB", "decode_e2e", "decode_e2e_mbps", "agg_e2e", "e2e_auto_ok", "vs_ref", "fresh_vs_ref",
         *(k for arm in ARMS[1:] for k in (f"e2e_{arm}", f"e2e_{arm}_mbps")),
         *(k for arm in ARMS for k in (f"e2e_{arm}_warm", f"e2e_{arm}_warm_mbps")), "e2e_auto_warm_ok")
+# the program counters of a K's line, all present always (capture_ms null on the CPU)
+PROGRAM_KEYS = ("capture_ms", "replay_program_capture", "replay_program_replay", "replay_compile_new",
+                "replay_compile_hit")
 # and under --mesh N
 MESH_KEYS = ("mesh_lanes", "encode_e2e_mesh", "encode_e2e_mesh_mbps", "e2e_device_mesh", "e2e_device_mesh_mbps")
 
@@ -197,9 +215,11 @@ class Clock:
         return per
 
     def timed(self, fn, iters: int) -> float | None:
-        """Seconds per fn() over `iters` calls after one warm-up call; more
-        calls while the region is under the floor; None where MAX_CALLS do
-        not reach it or the deadline passes first."""
+        """Seconds per fn() over `iters` calls after two warm-up calls (on a
+        card the second captures the replay's program); more calls while the
+        region is under the floor; None where MAX_CALLS do not reach it or
+        the deadline passes first."""
+        fn()
         fn()
         self.sync()
         calls = max(1, iters)
@@ -324,6 +344,7 @@ def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",), me
 def bench_K(K, T, blocks, iters, rng, dev, clock: Clock, dec_blocks=0, mesh=None) -> dict:
     """The cells of one K but decode_e2e; a cell the deadline cuts stays null."""
     r = dict.fromkeys(KEYS)
+    r.update(dict.fromkeys(PROGRAM_KEYS))
     if mesh is not None:
         r.update(dict.fromkeys(MESH_KEYS), mesh_lanes=mesh.size)
     P = params_init(K)
@@ -356,6 +377,9 @@ def bench_K(K, T, blocks, iters, rng, dev, clock: Clock, dec_blocks=0, mesh=None
     enc_per = clock.timed(lambda: replay(arr, Dj), iters)
     if enc_per:
         r["encode_replay"] = _gbps(payload, enc_per)
+    capture_s = sum(p.capture_s for (w, _), p in programs(arr).items() if w == t)  # one stream: one program
+    if dev.type == "cuda":
+        r["capture_ms"] = 1e3 * capture_s
 
     # --- encode (headline): replay + LT of all K' systematic symbols ---
     if clock.expired():
@@ -365,8 +389,13 @@ def bench_K(K, T, blocks, iters, rng, dev, clock: Clock, dec_blocks=0, mesh=None
     if encfull_per:
         r["encode"], r["encode_mbps"] = _gbps(payload, encfull_per), _mbps(payload, encfull_per)
         # fresh encode: a cold encoder pays the schedule solve + compile once,
-        # then streams batches; normalized to the reference's 256 MiB object
-        fresh_s = r["fresh_ms"] / 1e3 + (OBJECT_BYTES / payload) * encfull_per
+        # then streams batches, normalized to the reference's 256 MiB object:
+        # the first batch replays eagerly, the second (when the object holds
+        # two whole batches) captures the program, the rest replay it
+        eager_per = clock.timed(lambda: lt_combine(eager_replay(arr, Dj), plan_all), iters) or encfull_per
+        n = OBJECT_BYTES / payload
+        fresh_s = (r["fresh_ms"] / 1e3 + min(n, 1.0) * eager_per + (capture_s if n >= 2 else 0.0)
+                   + max(n - 1.0, 0.0) * encfull_per)
         r["encode_fresh"] = _gbps(OBJECT_BYTES, fresh_s)
 
     # --- encode_e2e: the same object from host memory to host memory ---
@@ -384,11 +413,13 @@ def bench_K(K, T, blocks, iters, rng, dev, clock: Clock, dec_blocks=0, mesh=None
         return tbatch.repair_symbols(obj, n_repair, dev, mesh=mesh)  # fetched to the host
 
     want = encode_e2e()  # warm: the repair plan
+    encode_e2e()  # and the program's capture
     rounds = max(2, min(iters, 5))
     e2e_s = min(clock.wall(encode_e2e) for _ in range(rounds))
     r["encode_e2e"], r["encode_e2e_mbps"], r["encode_e2e_repair"] = _gbps(payload, e2e_s), _mbps(payload, e2e_s), n_repair
     if mesh is not None and not clock.expired():
         got = encode_e2e(mesh)  # warm: the lanes' plans and the first pinning
+        encode_e2e(mesh)  # and the lanes' programs
         _gate(all(np.array_equal(got[b], want[b]) for b in range(blocks)), "encode_e2e_mesh verification FAILED")
         mesh_s = min(clock.wall(lambda: encode_e2e(mesh)) for _ in range(rounds))
         _gate(not mesh.take_index_errors(), "encode_e2e_mesh: a gather met an index outside its source")
@@ -518,6 +549,7 @@ def run_grid(args, ks, results, dev, clock: Clock, fields: dict) -> None:
         blocks = min(args.blocks or default_blocks(K, args.T), Z_MAX)
         iters = args.iters if K <= 5000 else max(4, args.iters // 4)
         dec_blocks = min(args.dec_blocks, default_blocks(K, args.T))
+        counts0 = stats.snapshot()["counters"]
         r = bench_K(K, args.T, blocks, iters, rng, dev, clock, dec_blocks=dec_blocks, mesh=mesh)
         if not args.no_pipe and not clock.expired():
             # decode_e2e: fresh-pattern decode through repair_all, per-pattern
@@ -547,6 +579,8 @@ def run_grid(args, ks, results, dev, clock: Clock, fields: dict) -> None:
                 r["e2e_auto_warm_ok"] = _auto_ok(K, "warm", wsecs, nbytes)
             if r["encode"]:
                 r["agg_e2e"] = 1.0 / (1.0 / r["encode"] + 1.0 / r["decode_e2e"])
+        counts1 = stats.snapshot()["counters"]
+        r.update({k: counts1.get(k, 0) - counts0.get(k, 0) for k in PROGRAM_KEYS[1:]})
         base = REF_BASELINE.get(K)
         if base and r["encode"]:
             # vs_ref from the fresh-pattern e2e decode when measured (the

@@ -7,11 +7,15 @@ ADDED/IGN/DUP/ERR statuses, gap tracking, block repair.  The host logic
 solve) is the JAX package's, copied unchanged; every device call site runs
 the port's torch code on the explicit `device` the object was built with:
 
-- encode: the structured replay (ops/replay.py) and LT combine (ops/lt.py);
+- encode: the structured replay and LT combine (ops/lt.py); on a card the
+  replay is the encoder schedule's program, one captured CUDA graph per
+  width and stream from its second replay on (ops/program.py;
+  ops/replay.py runs it eagerly);
 - decode, per `backend` of `repair_all` (default: env NANORQ_DECODE_BACKEND,
   else "auto", as in the JAX package):
   - "device": the dense-W matmul (ops/wpath.py) for WSchedule plans, or the
-    replay plus a gap LT combine for structured plans;
+    replay plus a gap LT combine for structured plans (on a card the
+    schedule's program from the pattern's second replay on);
   - "res": the residual arm, no per-pattern solve: canonical w-rows, a
     native G-inverse per block and one batched K3 product per chunk
     (ops/wpath.res_apply_batch).  Raises when the native factorization is
@@ -52,9 +56,9 @@ from nanorq_tpu_torch.codec.partition import Scheme, div_ceil, make_scheme, sche
 from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.io.ioctx import IOContext
 from nanorq_tpu_torch.native import host_repair_shared, host_residual_flat, native_available, res_rinv
-from nanorq_tpu_torch.ops import wpath
+from nanorq_tpu_torch.ops import program, wpath
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
-from nanorq_tpu_torch.ops.replay import device_arrays, replay
+from nanorq_tpu_torch.ops.replay import device_arrays
 from nanorq_tpu_torch.parallel import mesh as lanes
 from nanorq_tpu_torch.rfc.params import Params, params_init
 from nanorq_tpu_torch.rfc.tables import K_MAX, MAX_TRANSFER, Z_MAX
@@ -693,7 +697,8 @@ class Decoder(_CodecBase):
     def _repair_launch(self, lane, sbn: int, gaps: np.ndarray, overhead: int, ds):
         """Launch one block's recovery on `lane`; returns a host view of its
         gap rows.  A WSchedule runs one dense-W matmul; a DeviceSchedule the
-        structured replay plus an LT combine of the gap ISIs.  What is cached
+        structured replay (the schedule's program once the pattern is warm,
+        `ops/program.py`) plus an LT combine of the gap ISIs.  What is cached
         per device is fetched first, on the current stream; then the block's
         live rows (K' + overhead of M_pad) are staged in pinned memory,
         uploaded and launched on the lane's stream.  The rows past them are
@@ -704,7 +709,7 @@ class Decoder(_CodecBase):
         else:
             arr = device_arrays(ds, lane.device)
             plan = lt_plan(gaps.astype(np.uint32), self.P, lane.device)
-            run = lambda D: lt_combine(replay(arr, D), plan)  # noqa: E731
+            run = lambda D: lt_combine(program.replay(arr, D), plan)  # noqa: E731
         D_dev = lanes.stage(lane, (ds.M_pad, self.scheme.T),
                             lambda host: self._repair_D(sbn, gaps, overhead, ds.M_pad, out=host.numpy()),
                             rows=self.P.Kp + overhead)

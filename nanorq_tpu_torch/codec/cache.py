@@ -13,6 +13,7 @@ constructors are the port's (`ops/wpath.py`), and a `WSchedule` stages its
 tensors per torch device and applies them with the port's kernels.
 """
 
+import dataclasses
 import os
 import pickle
 from threading import Lock
@@ -424,9 +425,10 @@ def decoder_schedule(P: Params, isis: np.ndarray, overhead: int, CB: int | None 
 
 
 def save_schedule(ds: DeviceSchedule, path: str) -> None:
-    """Persist a solved schedule (checkpoint/resume for long-lived encoders)."""
+    """Persist a solved schedule (checkpoint/resume for long-lived encoders):
+    its fields alone, not what a run keeps on it (device tensors, programs)."""
     with open(path, "wb") as f:
-        pickle.dump(ds, f, protocol=pickle.HIGHEST_PROTOCOL)
+        pickle.dump(dataclasses.replace(ds), f, protocol=pickle.HIGHEST_PROTOCOL)
 
 
 def load_schedule(path: str) -> DeviceSchedule:

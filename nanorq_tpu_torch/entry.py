@@ -3,7 +3,9 @@
 One encode step at K=1000, T=1280: the structured replay of the per-K'
 encoder schedule over `blocks` blocks laid side by side, then the LT combine
 of all K' ISIs (the systematic window, whose first K rows reproduce the
-source).
+source).  The JAX step is jitted; on a card `step` replays the schedule's
+program (`ops/program.py`, one captured CUDA graph, captured at the second
+step), and runs eagerly on the CPU.
 """
 
 import numpy as np
@@ -11,8 +13,9 @@ import torch
 
 from nanorq_tpu_torch.codec.cache import encoder_schedule
 from nanorq_tpu_torch.device import resolve
+from nanorq_tpu_torch.ops import program
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
-from nanorq_tpu_torch.ops.replay import device_arrays, replay
+from nanorq_tpu_torch.ops.replay import device_arrays
 from nanorq_tpu_torch.rfc.params import params_init
 
 
@@ -30,7 +33,7 @@ def flagship(device, K: int = 1000, T: int = 1280, blocks: int = 2, seed: int = 
 
 def step(arr: dict, plan, D: torch.Tensor) -> torch.Tensor:
     """Replay then LT combine: D [M_pad, t] -> symbols [n_pad, t]."""
-    return lt_combine(replay(arr, D), plan)
+    return lt_combine(program.replay(arr, D), plan)
 
 
 def entry(device):

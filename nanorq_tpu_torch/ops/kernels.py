@@ -13,6 +13,11 @@ given to gather_v2 (`take_count_errors`).
 Every wrapper takes an optional `out`: when given, the result is XORed into
 it in place (the replay accumulates gathers and products into row blocks it
 owns) instead of being returned in a fresh tensor.
+
+A launch captured into a CUDA graph (`ops/program.py`) does not run where it
+is captured: inside `tape()` the wrappers count and record it on a `Tape`,
+and `play(tape)` adds it to LAUNCHES (and to `record_gathers`) wherever a
+replay of the graph runs it.
 """
 
 import contextlib
@@ -121,6 +126,43 @@ def _flag(flags: dict, dev: torch.device) -> torch.Tensor:
     return flag
 
 
+class Tape:
+    """The launches one CUDA graph holds, taken while it was captured: per
+    kernel the count each replay adds to LAUNCHES, and the gathers' operands
+    (as `record_gathers` lists them) each replay shows a recording."""
+
+    __slots__ = ("launches", "gathers")
+
+    def __init__(self):
+        self.launches, self.gathers = {}, []
+
+
+@contextlib.contextmanager
+def tape():
+    """Inside, launches are captured into a CUDA graph and do not run: they
+    are counted and recorded on the Tape yielded, and neither in LAUNCHES nor
+    in an outer `record_gathers`."""
+    global _RECORD, _RECORD_MAX
+    before, outer = dict(LAUNCHES), (_RECORD, _RECORD_MAX)
+    tp = Tape()
+    _RECORD, _RECORD_MAX = tp.gathers, None
+    try:
+        yield tp
+    finally:
+        tp.launches = {name: LAUNCHES[name] - n for name, n in before.items() if LAUNCHES[name] != n}
+        LAUNCHES.update(before)
+        _RECORD, _RECORD_MAX = outer
+
+
+def play(tp: Tape) -> None:
+    """Count the launches of one replay of the graph `tp` was taken from."""
+    for name, n in tp.launches.items():
+        LAUNCHES[name] += n
+    if _RECORD is not None:
+        room = len(tp.gathers) if _RECORD_MAX is None else max(0, _RECORD_MAX - len(_RECORD))
+        _RECORD.extend(tp.gathers[:room])
+
+
 def check_rows(rows, n_out: int) -> None:
     """Refuse output rows (numpy or torch, 1-D) that repeat or lie outside
     [0, n_out): gather_xor's `rows` writes each row once, without atomics."""
@@ -138,9 +180,9 @@ _RECORD_MAX: int | None = None
 @contextlib.contextmanager
 def record_gathers(limit: int | None = None):
     """Inside, every gather_xor launch on CUDA also appends its operands to
-    the list yielded, as {"src", "idx", "out", "rows", "zero_index"} (out:
-    None for a fresh result), so that a tool can time each launch of a path
-    again (`tools/gather_launches.py`).  With `limit`, only the first
+    the list yielded, as {"src", "idx", "out", "rows", "zero_index",
+    "overwrite"} (out: None for a fresh result), so that a tool can time
+    each launch of a path again (`tools/gather_launches.py`).  With `limit`, only the first
     `limit` launches: the list holds their tensors alive, and no later's."""
     global _RECORD, _RECORD_MAX
     rec = []
@@ -153,8 +195,11 @@ def record_gathers(limit: int | None = None):
 
 def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = None, *,
                rows: torch.Tensor | None = None, zero_index: int | None = None,
-               check: bool = False) -> torch.Tensor:
+               check: bool = False, overwrite: bool = False) -> torch.Tensor:
     """K1: out[i] = XOR_k src[idx[i, k]];  src uint8 [S, t], idx int32 [n, w].
+
+    overwrite (needs `out`, no `rows`): the result is written into out, not
+    XORed into it (the replay's prologue fills buffers its program owns).
 
     rows (int32 [n], distinct, needs `out`): result row i is XORed into
     out[rows[i]], and no other row of out is touched; out may then have any
@@ -179,6 +224,7 @@ def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = 
         _need(rows.dtype == torch.int32 and tuple(rows.shape) == (n,) and rows.is_contiguous(),
               f"rows: expected a contiguous int32 [{n}], got {rows.dtype} {tuple(rows.shape)}")
         inputs += (rows,)
+    _need(not overwrite or (out is not None and rows is None), "overwrite: needs out and no rows")
     out = _out(out, (n if rows is None else out.shape[0], t), *inputs)
     hi = S if zero_index is None else S + 1
     if _device_kind(*inputs) == "cpu":
@@ -186,9 +232,11 @@ def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = 
             raise IndexError(f"gather_xor: an index lies outside [0, {hi})")
         if rows is not None:
             check_rows(rows, out.shape[0])
+        if overwrite:
+            return out.copy_(gfmat.xor_reduce_gather(src, idx, zero_index=zero_index))
         return gfmat.xor_reduce_gather(src, idx, out=out, rows=rows, zero_index=zero_index)
-    acc = out is not None
-    res = out if acc else torch.empty((n, t), dtype=torch.uint8, device=src.device)
+    acc = out is not None and not overwrite
+    res = out if out is not None else torch.empty((n, t), dtype=torch.uint8, device=src.device)
     if n and t:
         lib = _build.load()
         with torch.cuda.device(src.device):
@@ -197,7 +245,8 @@ def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = 
                     int(zero_index is not None), _flag(_INDEX_ERR, src.device).data_ptr(),
                     _stream(src.device))
         if _RECORD is not None and (_RECORD_MAX is None or len(_RECORD) < _RECORD_MAX):
-            _RECORD.append({"src": src, "idx": idx, "out": out, "rows": rows, "zero_index": zero_index})
+            _RECORD.append({"src": src, "idx": idx, "out": out, "rows": rows, "zero_index": zero_index,
+                            "overwrite": overwrite})
         if check and take_index_errors(src.device):
             raise IndexError(f"gather_xor: an index lies outside [0, {hi}) or a row outside out")
     return res

@@ -11,9 +11,18 @@ Counterpart of `nanorq_tpu.ops.replay` (`_replay_jit`), running the same
 
 Every gather is kernel K1 (`ops/kernels.gather_xor`), the chunk inverses and
 Wut are K2 (`gf2_matmul`, on the packed bits as stored) and HDPC and Vinv are
-K3 (`gf256_matmul`, on the raw byte matrices).  PyTorch runs eagerly, so the
-TPU program's `lax.scan` over chunks is a Python loop, and the replay updates
-buffers it owns in place where JAX had to copy.
+K3 (`gf256_matmul`, on the raw byte matrices).  The TPU program's `lax.scan`
+over chunks is a Python loop of launches, and the replay updates buffers it
+owns in place where JAX had to copy.
+
+`replay` runs in three parts: the `prologue` (the two gathers that read D,
+into the buffers of `buffers`), the `body` (stages 1-4 over those buffers
+alone) and the `epilogue` (stage 5, into a fresh C).  Here they run eagerly,
+one launch after another: the CPU path, and the body a CUDA graph captures.
+The counterpart of `_replay_jit` -- one program per schedule, dispatched
+once -- is `ops/program.py`, which captures the body for a width and a
+stream and replays it with one launch between the prologue and the
+epilogue; so neither D nor C is an address of the graph.
 
 The TPU program is scatter-free (a dynamic row scatter costs ~30x there):
 each overflow class of a GatherPlan, and the HDPC products, are gathered
@@ -31,6 +40,7 @@ import torch
 from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.ops.kernels import check_rows, gather_xor, gf2_matmul, gf256_matmul
 from nanorq_tpu_torch.precode.device_schedule import DeviceSchedule
+from nanorq_tpu_torch.utils import stats
 
 
 def _idx(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -84,6 +94,10 @@ def device_arrays(ds: DeviceSchedule, device) -> dict:
     no zsel row needs to receive; columns of `mhd` and `wut` past it select
     nothing).  The bsel overflow classes and the HDPC placement `hd_sel`
     are kept composed with their placements (`placed`) only.
+
+    On a card the dict also keeps the schedule's programs (`programs`,
+    `ops/program.py`), so that they die with it.  Each schedule's signature
+    is counted once here (`_count_signature`).
     """
     dev = resolve(device)
     cache = ds.__dict__.setdefault("_torch_arrays", {})
@@ -119,7 +133,35 @@ def device_arrays(ds: DeviceSchedule, device) -> dict:
     arr["wut"] = _u8(ds.wut[: _extent(ds.wut, 0)], dev)
     arr["wut_k"] = 8 * _extent(ds.wut, 1)
     cache[dev] = arr
+    _count_signature(arr)
     return arr
+
+
+_seen_signatures: set = set()
+
+
+def _count_signature(arr: dict) -> None:
+    """Count a schedule's signature -- every tensor's shape and every static
+    int, what a program of it is shaped by (the JAX package's compile key) --
+    as new or seen before, in `utils.stats` under the JAX package's names
+    (`replay_compile_new` / `replay_compile_hit`): how often decode schedules
+    of one K' could share one program.  The port does not share them yet
+    (`ops/program.py`)."""
+    hd = arr.get("mhd")
+    sig = (
+        arr["Lpad"], arr["CB"], arr["u_pad"], arr["piv_rows"].shape,
+        tuple((s["q0"], s["tinv"].shape, tuple((a, b, ix.shape) for a, b, ix in s["ranges"])) for s in arr["tri"]),
+        arr["sel_rows"].shape,
+        tuple(p.shape for p in arr["bsel_passes"]),
+        tuple((ix.shape, rows.shape) for ix, rows in arr["bsel_placed"]),
+        None if hd is None else (hd.shape, *(x.shape for x in arr["hd_placed"])),
+        arr["vinv"].shape, arr["wut"].shape, arr["wut_k"], arr["out_sel"].shape,
+    )
+    if sig in _seen_signatures:
+        stats.count("replay_compile_hit")
+    else:
+        _seen_signatures.add(sig)
+        stats.count("replay_compile_new")
 
 
 def take_rows(src: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -155,22 +197,32 @@ def _trisolve(arr: dict, y: torch.Tensor, t1: torch.Tensor) -> None:
             gf2_matmul(seg["tinv"][qi], yq, out=t1[q * CB : (q + 1) * CB])
 
 
-def replay(arr: dict, D: torch.Tensor) -> torch.Tensor:
-    """Structured replay: D [M_pad, t] uint8 (row M_pad-1 zero) -> C [L, t]."""
+def buffers(arr: dict, t: int, device) -> dict:
+    """The buffers the body owns at width t: y [Lpad, t] (D's pivot rows, the
+    trisolve's scratch), z [Lpad + u_pad, t] (t1, then x_u: stage 5 gathers
+    from one buffer with no concat) and zsel [u_pad, t]."""
     Lpad, u_pad = arr["Lpad"], arr["u_pad"]
-    t = D.shape[1]
-    # z holds t1 (rows < Lpad), then x_u (rows Lpad..Lpad+u_pad-1), so
-    # stage 5 gathers from one buffer with no concat; the gathers into t1
-    # read their sentinel Lpad as K1's implicit zero row
-    z = torch.zeros((Lpad + u_pad, t), dtype=torch.uint8, device=D.device)
-    t1 = z[:Lpad]
+    return {name: torch.empty((rows, t), dtype=torch.uint8, device=device)
+            for name, rows in (("y", Lpad), ("z", Lpad + u_pad), ("zsel", u_pad))}
 
-    y = take_rows(D, arr["piv_rows"])  # [Lpad, t]
-    _trisolve(arr, y, t1)  # stage 1
-    del y
+
+def prologue(arr: dict, D: torch.Tensor, buf: dict) -> None:
+    """The two gathers that read D [M_pad, t] (row M_pad-1 zero), written
+    into the body's y and zsel."""
+    gather_xor(D, arr["piv_rows"], out=buf["y"], overwrite=True)
+    gather_xor(D, arr["sel_rows"], out=buf["zsel"], overwrite=True)
+
+
+def body(arr: dict, buf: dict) -> None:
+    """Stages 1-4 over the buffers alone: z = (x_a, x_u)."""
+    Lpad, u_pad = arr["Lpad"], arr["u_pad"]
+    z, zsel = buf["z"], buf["zsel"]
+    z.zero_()  # the gathers into t1 read their sentinel Lpad as K1's implicit zero row
+    t1 = z[:Lpad]
+    _trisolve(arr, buf["y"], t1)  # stage 1
 
     # stage 2: zsel = y_sel ^ B_sel t1 (+ HDPC dense part)
-    zsel = apply_plan(t1, arr["bsel_passes"], arr["bsel_placed"], take_rows(D, arr["sel_rows"]), Lpad)
+    apply_plan(t1, arr["bsel_passes"], arr["bsel_placed"], zsel, Lpad)
     hd = arr.get("mhd")
     if hd is not None and hd.numel():  # HDPC products, XORed into the zsel rows that take one
         ix, rows = arr["hd_placed"]
@@ -181,4 +233,16 @@ def replay(arr: dict, D: torch.Tensor) -> torch.Tensor:
     wut = arr["wut"]  # stage 4: x_a = t1 ^ Wut x_u
     if wut.numel() and arr["wut_k"]:
         gf2_matmul(wut, xu[: arr["wut_k"]], out=t1[: wut.shape[0]])
-    return take_rows(z, arr["out_sel"])  # stage 5
+
+
+def epilogue(arr: dict, buf: dict) -> torch.Tensor:
+    """Stage 5: C = z[out_sel], a fresh tensor."""
+    return take_rows(buf["z"], arr["out_sel"])
+
+
+def replay(arr: dict, D: torch.Tensor) -> torch.Tensor:
+    """Structured replay, eagerly: D [M_pad, t] uint8 (row M_pad-1 zero) -> C [L, t]."""
+    buf = buffers(arr, D.shape[1], D.device)
+    prologue(arr, D, buf)
+    body(arr, buf)
+    return epilogue(arr, buf)

@@ -30,8 +30,9 @@ import torch
 
 from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.ops import kernels
+from nanorq_tpu_torch.ops import program
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
-from nanorq_tpu_torch.ops.replay import device_arrays, replay
+from nanorq_tpu_torch.ops.replay import device_arrays
 
 
 class Lane:
@@ -197,7 +198,9 @@ def stage(lane: Lane, shape: tuple, fill, dtype=torch.uint8, rows: int | None = 
 
     On a CUDA lane the staging is pinned and the copy is started on the lane's
     stream without waiting (PyTorch keeps a pinned block from reuse until the
-    copies that read it are done).  A CPU lane's tensor is its own staging."""
+    copies that read it are done); where the card is out of memory, its
+    replay programs are evicted first (`ops/program.empty`).  A CPU lane's
+    tensor is its own staging."""
     live = shape[0] if rows is None else min(rows, shape[0])
     if not lane.cuda:
         x = torch.empty(shape, dtype=dtype)
@@ -207,7 +210,7 @@ def stage(lane: Lane, shape: tuple, fill, dtype=torch.uint8, rows: int | None = 
     host = torch.empty((live, *shape[1:]), dtype=dtype, pin_memory=True)
     fill(host)
     with lane.on():
-        x = torch.empty(shape, dtype=dtype, device=lane.device)
+        x = program.empty(shape, dtype, lane.device)
         x[:live].copy_(host, non_blocking=True)
         if live < shape[0]:
             x[live:].zero_()
@@ -232,7 +235,7 @@ def upload(lane: Lane, D, rows: int, live: int) -> torch.Tensor:
     if not (lane.cuda and head.is_contiguous() and head.is_pinned()):
         return stage(lane, shape, lambda h: h.copy_(head), src.dtype, rows=live)
     with lane.on():
-        x = torch.empty(shape, dtype=src.dtype, device=lane.device)
+        x = program.empty(shape, src.dtype, lane.device)
         x[:live].copy_(head, non_blocking=True)
         if live < rows:
             x[live:].zero_()
@@ -385,9 +388,11 @@ def _same(D: Sharded, mesh: Mesh) -> None:
 
 
 def replay_sharded(ds, D: Sharded, mesh: Mesh) -> Sharded:
-    """Sharded structured replay: D [M_pad, t] split on width -> C [L, t]."""
+    """Sharded structured replay: D [M_pad, t] split on width -> C [L, t].
+    Each lane replays the schedule's program for its width on its stream
+    (`ops/program.py`; the local mesh's one lane: the current stream)."""
     _same(D, mesh)
-    return D.each(lambda dev: device_arrays(ds, dev), replay)
+    return D.each(lambda dev: device_arrays(ds, dev), program.replay)
 
 
 def lt_sharded(C: Sharded, isis: np.ndarray, P, mesh: Mesh) -> Sharded:

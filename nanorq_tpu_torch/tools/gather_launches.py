@@ -7,12 +7,13 @@ Records the K1 launches of one structured replay and one repair LT combine
 K = 1000 encoder schedule (K' = 1002) and the plan of 200 repair symbols, on
 a seeded random D at t = Z*T (Z = 200 blocks of T = 1280), warm (a first
 replay builds the schedule's tensors).  Then, for each launch, on its own
-operands: the kernel bit-exact against the plain version (`gfmat`), fresh and
-XORed into its out= (at its `rows`); `ms`, its mean over `--iters` launches
-in one CUDA graph; `plain_ms` (CUDA events); and, for a width-1 gather into
-a fresh tensor, one `torch.index_select` of the same rows (`library_ms`, in
-a CUDA graph).  One JSON line per launch, then one line of sums.  Needs a CUDA
-device.
+operands: the kernel bit-exact against the plain version (`gfmat`), into a
+fresh tensor, XORed into its out= (at its `rows`), or written into its out=
+(`overwrite`: the replay's prologue fills the buffers its program owns);
+`ms`, its mean over `--iters` launches in one CUDA graph; `plain_ms` (CUDA
+events); and, for a width-1 gather that does not XOR, one
+`torch.index_select` of the same rows (`library_ms`, in a CUDA graph).  One
+JSON line per launch, then one line of sums.  Needs a CUDA device.
 
 Bounds, at the H100 SXM data sheet's 3.35 TB/s (`bounds`): `bound_ms`, the
 bytes the launch must move -- each distinct source row it reads once (index
@@ -58,10 +59,15 @@ def encode_launches(dev, t: int = WIDE, seed: int = 0) -> list:
     return rec
 
 
+def _acc(r: dict) -> bool:
+    """Whether the launch XORed into its out= (not written into it, nor fresh)."""
+    return r["out"] is not None and not r["overwrite"]
+
+
 def label(r: dict) -> str:
     S, t = r["src"].shape
     n, w = r["idx"].shape
-    tags = [tag for tag, on in (("acc", r["out"] is not None), ("rows", r["rows"] is not None),
+    tags = [tag for tag, on in (("acc", _acc(r)), ("into", r["overwrite"]), ("rows", r["rows"] is not None),
                                 ("zero", r["zero_index"] is not None)) if on]
     return f"src[{S},{t}] idx({n},{w})" + ("" if not tags else " " + "+".join(tags))
 
@@ -73,17 +79,21 @@ def bounds(r: dict) -> dict:
     n = idx.shape[0]
     read = idx[idx != r["zero_index"]] if r["zero_index"] is not None else idx.reshape(-1)
     small = idx.numel() * 4 + (0 if rows is None else n * 4)
-    out_bytes = n * t * (1 if out is None else 2)
+    out_bytes = n * t * (2 if _acc(r) else 1)
     return {"bound_ms": (int(torch.unique(read).numel()) * t + out_bytes + small) / HBM_BPS * 1e3,
             "gathered_ms": (int(read.numel()) * t + out_bytes + small) / HBM_BPS * 1e3}
 
 
 def _calls(r: dict):
-    """(kernel call, plain call) on r's operands; each XORs into its own copy
-    of r's out, or returns a fresh result."""
-    src, idx, rows, zi = r["src"], r["idx"], r["rows"], r["zero_index"]
+    """(kernel call, plain call) on r's operands; each XORs into (or, for an
+    overwrite, writes into) its own copy of r's out, or returns a fresh
+    result."""
+    src, idx, rows, zi, over = r["src"], r["idx"], r["rows"], r["zero_index"], r["overwrite"]
     kout = None if r["out"] is None else r["out"].clone()
     pout = None if r["out"] is None else r["out"].clone()
+    if over:
+        return (lambda: kernels.gather_xor(src, idx, out=kout, zero_index=zi, overwrite=True),
+                lambda: pout.copy_(gfmat.xor_reduce_gather(src, idx, zero_index=zi)))
     return (lambda: kernels.gather_xor(src, idx, out=kout, rows=rows, zero_index=zi),
             lambda: gfmat.xor_reduce_gather(src, idx, out=pout, rows=rows, zero_index=zi))
 
@@ -109,7 +119,7 @@ def measure(r: dict, iters: int) -> dict:
     line["ms"] = graph_ms(kfn, iters)
     line["plain_ms"] = events_ms(pfn, 2 if src.shape[1] > T else 5)
     line["library_ms"] = None
-    if w == 1 and r["out"] is None:
+    if w == 1 and not _acc(r):
         col = idx[:, 0].contiguous()
         line["library_ms"] = graph_ms(lambda: torch.index_select(src, 0, col), iters)
     line.update(bounds(r))

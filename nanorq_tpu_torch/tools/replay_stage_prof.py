@@ -25,7 +25,9 @@ start, they compute the replay's C):
 
 A first line gives the schedule (CB, chunks, segments, the ranges' fill).
 Then one JSON line per stage: ms / graph_ms, launches, Gb/s-equivalent of
-the B blocks' payload, with the card's name and power limit.
+the B blocks' payload, with the card's name and power limit; the line of
+`full` also has `program_ms`, the replay through the schedule's program
+(`ops/program.py`), null on every other stage.
 """
 
 import argparse
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from nanorq_tpu_torch.codec.cache import encoder_schedule
+from nanorq_tpu_torch.ops import program
 from nanorq_tpu_torch.ops.kernels import gather_xor, gf2_matmul, gf256_matmul
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
 from nanorq_tpu_torch.ops.replay import _trisolve, apply_plan, device_arrays, replay, take_rows
@@ -117,8 +120,10 @@ def main(argv=None) -> list:
             "t": t, "chunks": ds.Lpad // ds.CB, "segs": len(ds.tri), "range_fill": deps / max(1, slots)}
     lines = [_sweep.emit(head, fields)]
     plan_all = lt_plan(np.arange(P.Kp, dtype=np.uint32), P, dev)
+    full_program = lambda: program.replay(arr, D)  # noqa: E731
     for name, fn in stages(arr, D, plan_all).items():
-        line = {"tool": "replay_stage_prof", "K": K, "B": B, "stage": name, **_sweep.timed(fn, dev, args.iters)}
+        line = {"tool": "replay_stage_prof", "K": K, "B": B, "stage": name,
+                **_sweep.timed(fn, dev, args.iters, full_program if name == "full" else None)}
         line["gbps_eq"] = _sweep.gbps(K * T * B, line["ms"])
         lines.append(_sweep.emit(line, fields))
     return lines

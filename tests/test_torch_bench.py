@@ -17,6 +17,7 @@ from nanorq_tpu.codec.api import Decoder as JDecoder
 from nanorq_tpu.codec.api import Encoder as JEncoder
 from nanorq_tpu.io.ioctx import MemoryIO as JMemoryIO
 from nanorq_tpu_torch import bench
+from nanorq_tpu_torch.codec import cache
 from nanorq_tpu_torch.codec.oti import make_tag
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -32,6 +33,7 @@ def _run(argv):
 
 @pytest.fixture(scope="module")
 def tiny_run():
+    cache.clear_encoder_cache()  # as in a fresh process: each K's schedules are built by the run
     return _run(TINY + ["--ks", "10", "12", "--arms"])
 
 
@@ -47,6 +49,16 @@ def test_bench_prints_one_line_per_k_then_the_summary(tiny_run):
             assert (v is None and key in ("vs_ref", "fresh_vs_ref")) or isinstance(v, (bool, str)) or math.isfinite(v), key
         for key in ("encode", "encode_e2e", "decode_e2e", *(f"e2e_{a}" for a in bench.ARMS[1:])):
             assert ln[key + "_mbps"] == pytest.approx(ln[key] * 1e9 / 2**20)  # BASELINE.md's unit beside Gbps
+
+
+def test_bench_lines_carry_the_program_counters(tiny_run):
+    """Each K's line has the program counters; on the CPU nothing is
+    captured, and each K's schedules count their signatures."""
+    _, lines = tiny_run
+    for ln in lines[:2]:
+        assert set(bench.PROGRAM_KEYS) <= set(ln) and ln["capture_ms"] is None
+        assert ln["replay_program_capture"] == 0 and ln["replay_program_replay"] == 0
+        assert ln["replay_compile_new"] + ln["replay_compile_hit"] >= 1
 
 
 def test_bench_summary_has_emit_s_shape(tiny_run):

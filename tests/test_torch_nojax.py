@@ -64,6 +64,8 @@ assert dec.repair_all(io, mesh=mesh) and np.array_equal(out, data)
 entry.dryrun_multichip(2, "cpu")
 fn, args = entry.entry("cpu")
 assert fn(*args).shape[0] >= 1002
+from nanorq_tpu_torch.ops import program, replay
+assert program.replay(args[0], args[2]).equal(replay.replay(args[0], args[2]))
 with tempfile.TemporaryDirectory() as d:
     src, rq, dst = (pathlib.Path(d) / f for f in ("in.bin", "data.rq", "out.bin"))
     src.write_bytes(data[:5000].tobytes())

@@ -1,6 +1,6 @@
 """The port's retuning sweeps (`nanorq_tpu_torch/tools/`: cb_probe,
-slotfill_probe, bsweep, wb_probe, replay_stage_prof) at a tiny size on the
-CPU: their lines, cb_probe's bit-identical C across chunk sizes (and its
+slotfill_probe, bsweep, wb_probe, replay_stage_prof) and the main path's
+A/B tool (main_path_ab) at a tiny size on the CPU: their lines, cb_probe's bit-identical C across chunk sizes (and its
 refusal of a C that differs), and slotfill_probe's counts against the JAX
 package's `tools/slotfill_probe.py` at the same K."""
 
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from nanorq_tpu_torch.rfc.params import params_init
-from nanorq_tpu_torch.tools import bsweep, cb_probe, replay_stage_prof, slotfill_probe, wb_probe
+from nanorq_tpu_torch.tools import bsweep, cb_probe, main_path_ab, replay_stage_prof, slotfill_probe, wb_probe
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TINY = ["--T", "16", "--device", "cpu"]
@@ -93,6 +93,30 @@ def test_bsweep_lines():
     lines = _run(bsweep.main, ["100", "1", "3", "--iters", "1", *TINY])
     assert [(ln["B"], ln["stage"]) for ln in lines] == [(1, "replay"), (1, "replay+lt"), (3, "replay"), (3, "replay+lt")]
     assert all(_timed(ln) and ln["t"] == 16 * ln["B"] and ln["gbps"] > 0 for ln in lines)
+
+
+def test_sweeps_time_the_program_path_beside_the_eager_one():
+    """bsweep's lines and replay_stage_prof's `full` carry `program_ms` (the
+    replay through the schedule's program); null on the CPU, where nothing
+    is captured, as `graph_ms` is."""
+    for ln in _run(bsweep.main, ["100", "2", "--iters", "1", *TINY]):
+        assert ln["program_ms"] is None and ln["program_gbps"] is None and ln["graph_ms"] is None
+    stages = _run(replay_stage_prof.main, ["100", "1", "1", *TINY])[1:]
+    assert all("program_ms" in ln and ln["program_ms"] is None for ln in stages)
+
+
+def test_main_path_ab_steps():
+    """The A/B tool's four steps at a tiny size: each call's seconds, and
+    the memory fields null on the CPU (no device memory to read)."""
+    argv = ["--device", "cpu", "--K", "10", "--T", "16", "--Z", "3", "--cli-bytes", "3000", "--encodes", "3",
+            "--cli", "2", "--tag", "t"]
+    lines = _run(main_path_ab.main, argv)
+    assert [ln["step"] for ln in lines] == ["encode", "decode", "lanes4", "cli"]
+    assert [len(ln["s"]) for ln in lines[:3]] == [3, 2, 4] and all(x > 0 for ln in lines[:3] for x in ln["s"])
+    assert len(lines[3]["encode_s"]) == len(lines[3]["decode_s"]) == 2
+    for ln in lines:
+        assert ln["tag"] == "t" and ln["timing"] == "perf_counter" and set(PRINTED) <= set(ln)
+        assert ln["allocated_GiB"] is None and ln["peak_GiB"] is None and ln["programs_MB"] is None
 
 
 def test_wb_probe_forms_are_exact():
