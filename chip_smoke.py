@@ -83,6 +83,8 @@ Phases, each printing its own lines and its seconds:
 11. sweeps: each retuning sweep of nanorq_tpu_torch/tools at one small point
    (K = 1000, 4 blocks): cb_probe over two chunk sizes, C bit-identical;
    slotfill_probe; bsweep; wb_probe, every form exact; replay_stage_prof;
+   decprep_prof (a cold decode block's host prep and device steps, K = 1000,
+   structured, two patterns);
 12. program: the replay through the schedule's program (one captured CUDA
    graph between the prologue's two gathers and the epilogue's one) against
    the eager replay, bit for bit, at K=1000 B=32, K=10000 B=4 and 16,
@@ -90,8 +92,12 @@ Phases, each printing its own lines and its seconds:
    pattern at K=50000, one block: both timed in turn (CUDA events around
    back-to-back calls), after one eager call the capturing call and the
    capture by the host clock,
-   the launches of one call; then the program counters and the bytes the
-   program cache holds.
+   the launches of one call; then `decode-shared`: the K=50000 layout frozen
+   by _FREEZE_AFTER + 1 patterns, 6 fresh patterns each replayed once
+   through the program of its signature (the second of a signature
+   captures, the later ones replay it: `replay_program_shared`), bit for bit
+   against the eager replay, per pattern the eager and the program call's
+   ms; then the program counters and the bytes the program cache holds.
 
 Phases 3, 9 and 10 replay the encoder schedule through its program, as the
 codec does on a card.  Each of the paths 3-4, 6, 7, 8, 9, 10, 11 and 12 runs with the launch counts set
@@ -156,6 +162,18 @@ def _cuda_ms(fn, iters: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _once_ms(fn) -> float:
+    """The time of one call of fn() (no warm-up: a call that must run once),
+    CUDA events around it after a synchronisation."""
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -733,14 +751,17 @@ def phase_sweeps() -> dict:
     point on the card, every line printed again as `[sweep] ...`: cb_probe
     over CB = 128 and 256 (the tool raises unless C is bit-identical),
     slotfill_probe, bsweep, wb_probe (every form exact against the dropped
-    source rows) and replay_stage_prof, at K = 1000 and 4 blocks."""
-    from nanorq_tpu_torch.tools import bsweep, cb_probe, replay_stage_prof, slotfill_probe, wb_probe
+    source rows) and replay_stage_prof, at K = 1000 and 4 blocks; then
+    decprep_prof's cold decode blocks at K = 1000 through the structured
+    path (two patterns, the replay through the signature's program)."""
+    from nanorq_tpu_torch.tools import bsweep, cb_probe, decprep_prof, replay_stage_prof, slotfill_probe, wb_probe
 
     runs = {"cb_probe": (cb_probe.main, ["1000", "128", "256", "--blocks", "4", "--iters", "2"]),
             "slotfill_probe": (slotfill_probe.main, ["1000"]),
             "bsweep": (bsweep.main, ["1000", "4", "--iters", "2"]),
             "wb_probe": (wb_probe.main, ["1000", "--bs", "4", "--iters", "2"]),
-            "replay_stage_prof": (replay_stage_prof.main, ["1000", "4", "2"])}
+            "replay_stage_prof": (replay_stage_prof.main, ["1000", "4", "2"]),
+            "decprep_prof": (decprep_prof.main, ["1000", "--structured", "--patterns", "2"])}
     got = {}
     for name, (fn, argv) in runs.items():
         t0 = time.perf_counter()
@@ -762,6 +783,7 @@ def phase_sweeps() -> dict:
 PROGRAM_SHAPES = ((1000, 32), (10000, 4), (10000, 16), (50000, 1), (50000, 4))
 PROGRAM_DECODE = (50000, 1)  # and one warm structured decode pattern, one block (t = T), as repair_all replays it
 PROGRAM_ITERS = 10
+SHARED_FRESH = 6  # cold K=50000 patterns, each replayed once through its signature's program
 
 
 def _decode_pattern(K: int, seed: int):
@@ -821,7 +843,7 @@ def phase_program(dev, smi: str) -> list:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = {n: kernels.LAUNCHES[n] - before[n] for n in before if kernels.LAUNCHES[n] != before[n]}
-        prog = program.programs(arr)[(t, stream)]
+        prog = program.lookup(arr, t, stream)
         if not torch.equal(got, want):
             raise AssertionError(f"program {kind} K={K} B={B}: C differs from the eager replay")
         ms = {"eager": [], "program": []}
@@ -838,13 +860,74 @@ def phase_program(dev, smi: str) -> list:
         _say("program", **{k: json.dumps(v) if isinstance(v, (dict, list, str)) else v for k, v in line.items()})
         lines.append(line)
         del D, want, got, prog
+    lines.append(_decode_shared(dev, smi))
     c = stats.snapshot()["counters"]
     _say("program", counters=json.dumps({k: c.get(k, 0) for k in ("replay_program_capture", "replay_program_replay",
-                                                                    "replay_program_evict", "replay_compile_new",
-                                                                    "replay_compile_hit")}),
+                                                                    "replay_program_shared", "replay_program_evict",
+                                                                    "replay_compile_new", "replay_compile_hit")}),
          cached_MB=round(program.cached_bytes() / 2**20, 1),
          allocated_GiB=round(torch.cuda.memory_allocated() / 2**30, 2))
     return lines
+
+
+def _decode_shared(dev, smi: str) -> dict:
+    """Phase 12's `decode-shared` case: _FREEZE_AFTER + 1 patterns at K=50000
+    compiled so that the canonical layout freezes, then SHARED_FRESH fresh
+    patterns, each replayed once through `program.replay` (as a receiver
+    decodes each block once), bit for bit against the eager replay of its
+    own arrays; per pattern the eager ms and the program call's ms (the
+    copy-in and the graph, or the capture, or the eager first call of a
+    signature; CUDA events around one call) and its route."""
+    from nanorq_tpu_torch.codec import cache as tcache
+    from nanorq_tpu_torch.ops import program
+    from nanorq_tpu_torch.ops import replay as treplay
+    from nanorq_tpu_torch.precode.device_schedule import _FREEZE_AFTER
+    from nanorq_tpu_torch.utils import stats
+
+    K = PROGRAM_DECODE[0]
+    keys = ("replay_program_capture", "replay_program_replay", "replay_program_shared")
+
+    def counts() -> dict:
+        c = stats.snapshot()["counters"]
+        return {k: c.get(k, 0) for k in keys}
+
+    for s in range(_FREEZE_AFTER + 1):
+        P, isis, ov = _decode_pattern(K, SEED + 7000 + s)
+        if tcache.decoder_schedule(P, isis, ov) is None:
+            raise AssertionError(f"a K={K} warm-up pattern did not solve")
+    start = counts()
+    rows = []
+    for s in range(SHARED_FRESH):
+        P, isis, ov = _decode_pattern(K, SEED + 8000 + s)
+        ds = tcache.decoder_schedule(P, isis, ov)
+        if ds is None:
+            raise AssertionError(f"the K={K} pattern {s} did not solve")
+        arr = treplay.device_arrays(ds, dev)
+        rng = np.random.default_rng(SEED + 8000 + s)
+        D = torch.zeros((ds.M_pad, T), dtype=torch.uint8, device=dev)
+        D[: P.Kp + ov] = torch.from_numpy(rng.integers(0, 256, (P.Kp + ov, T), dtype=np.uint8)).to(dev)
+        D[K : P.Kp] = 0
+        got = {}
+        eager_ms = _once_ms(lambda: got.__setitem__("eager", treplay.replay(arr, D)))
+        before = counts()
+        program_ms = _once_ms(lambda: got.__setitem__("program", program.replay(arr, D)))
+        d = {k: counts()[k] - before[k] for k in keys}
+        if not torch.equal(got["program"], got["eager"]):
+            raise AssertionError(f"decode-shared K={K} pattern {s}: C differs from the eager replay")
+        route = ("capture" if d["replay_program_capture"] else
+                 "shared" if d["replay_program_shared"] else "replay" if d["replay_program_replay"] else "eager")
+        rows.append({"eager_ms": round(eager_ms, 4), "program_ms": round(program_ms, 4), "route": route,
+                     "sig": arr["sig"]})
+        del D, got
+    d = {k: counts()[k] - start[k] for k in keys}
+    if not d["replay_program_shared"]:
+        raise AssertionError(f"decode-shared: no pattern replayed a shared program: {rows}")
+    line = {"kind": "decode-shared", "K": K, "B": 1, "t": T, "exact": True, "patterns": rows,
+            "captures": d["replay_program_capture"], "shared": d["replay_program_shared"],
+            "replays": d["replay_program_replay"], "cached_MB": round(program.cached_bytes() / 2**20, 1),
+            "card": smi}
+    _say("program", **{k: json.dumps(v) if isinstance(v, (dict, list, str)) else v for k, v in line.items()})
+    return line
 
 
 def _short(name: str) -> str:

@@ -57,7 +57,9 @@ Cells per K:
 Program counters per K (`PROGRAM_KEYS`, beside the cells): `capture_ms`,
 the host time of the encoder program's capture at the K's width (null on the
 CPU, where nothing is captured), and the K's counts of program captures,
-program replays, and schedule signatures new and seen before
+program replays, replays of a program another schedule of the signature
+captured (`replay_program_shared`: the cold decode patterns that found their
+signature's program), and schedule signatures new and seen before
 (`replay_compile_new` / `replay_compile_hit`, once per schedule).
 
 Timing: device-resident cells are timed between CUDA events over `iters`
@@ -97,7 +99,7 @@ from nanorq_tpu_torch.codec.oti import make_tag
 from nanorq_tpu_torch.device import resolve
 from nanorq_tpu_torch.io.ioctx import MemoryIO
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
-from nanorq_tpu_torch.ops.program import programs, replay
+from nanorq_tpu_torch.ops.program import lookup, replay
 from nanorq_tpu_torch.ops.replay import device_arrays
 from nanorq_tpu_torch.ops.replay import replay as eager_replay
 from nanorq_tpu_torch.parallel.mesh import host_matrix, local_mesh, make_mesh, upload
@@ -136,8 +138,8 @@ KEYS = ("encode", "encode_mbps", "encode_replay", "encode_e2e", "encode_e2e_mbps
         *(k for arm in ARMS[1:] for k in (f"e2e_{arm}", f"e2e_{arm}_mbps")),
         *(k for arm in ARMS for k in (f"e2e_{arm}_warm", f"e2e_{arm}_warm_mbps")), "e2e_auto_warm_ok")
 # the program counters of a K's line, all present always (capture_ms null on the CPU)
-PROGRAM_KEYS = ("capture_ms", "replay_program_capture", "replay_program_replay", "replay_compile_new",
-                "replay_compile_hit")
+PROGRAM_KEYS = ("capture_ms", "replay_program_capture", "replay_program_replay", "replay_program_shared",
+                "replay_compile_new", "replay_compile_hit")
 # and under --mesh N
 MESH_KEYS = ("mesh_lanes", "encode_e2e_mesh", "encode_e2e_mesh_mbps", "e2e_device_mesh", "e2e_device_mesh_mbps")
 
@@ -377,8 +379,10 @@ def bench_K(K, T, blocks, iters, rng, dev, clock: Clock, dec_blocks=0, mesh=None
     enc_per = clock.timed(lambda: replay(arr, Dj), iters)
     if enc_per:
         r["encode_replay"] = _gbps(payload, enc_per)
-    capture_s = sum(p.capture_s for (w, _), p in programs(arr).items() if w == t)  # one stream: one program
+    capture_s = 0.0
     if dev.type == "cuda":
+        prog = lookup(arr, t, torch.cuda.current_stream(dev).cuda_stream)
+        capture_s = prog.capture_s if prog is not None else 0.0
         r["capture_ms"] = 1e3 * capture_s
 
     # --- encode (headline): replay + LT of all K' systematic symbols ---

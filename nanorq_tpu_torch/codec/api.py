@@ -15,7 +15,8 @@ the port's torch code on the explicit `device` the object was built with:
   else "auto", as in the JAX package):
   - "device": the dense-W matmul (ops/wpath.py) for WSchedule plans, or the
     replay plus a gap LT combine for structured plans (on a card the
-    schedule's program from the pattern's second replay on);
+    program of the schedule's signature, shared by the patterns of one
+    canonical layout, from the signature's second replay on);
   - "res": the residual arm, no per-pattern solve: canonical w-rows, a
     native G-inverse per block and one batched K3 product per chunk
     (ops/wpath.res_apply_batch).  Raises when the native factorization is
@@ -697,9 +698,10 @@ class Decoder(_CodecBase):
     def _repair_launch(self, lane, sbn: int, gaps: np.ndarray, overhead: int, ds):
         """Launch one block's recovery on `lane`; returns a host view of its
         gap rows.  A WSchedule runs one dense-W matmul; a DeviceSchedule the
-        structured replay (the schedule's program once the pattern is warm,
-        `ops/program.py`) plus an LT combine of the gap ISIs.  What is cached
-        per device is fetched first, on the current stream; then the block's
+        structured replay (the program of the schedule's signature, which
+        a cold pattern shares with the patterns of its signature met
+        before, `ops/program.py`) plus an LT combine of the gap ISIs.  What
+        is cached per device is fetched first, on the current stream; then the block's
         live rows (K' + overhead of M_pad) are staged in pinned memory,
         uploaded and launched on the lane's stream.  The rows past them are
         zeroed on the device: the structured replay reads all M_pad."""

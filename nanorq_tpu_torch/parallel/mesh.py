@@ -389,7 +389,7 @@ def _same(D: Sharded, mesh: Mesh) -> None:
 
 def replay_sharded(ds, D: Sharded, mesh: Mesh) -> Sharded:
     """Sharded structured replay: D [M_pad, t] split on width -> C [L, t].
-    Each lane replays the schedule's program for its width on its stream
+    Each lane replays the program of the schedule's signature for its width on its stream
     (`ops/program.py`; the local mesh's one lane: the current stream)."""
     _same(D, mesh)
     return D.each(lambda dev: device_arrays(ds, dev), program.replay)

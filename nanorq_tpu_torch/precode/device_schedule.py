@@ -311,6 +311,12 @@ class DeviceSchedule:
     # triangle runs once per replay instead of twice.
     wut: np.ndarray
     out_sel: np.ndarray  # int32 [L] into concat(x_active[Lpad], x_u[u_pad])
+    # Compiled against the per-K' canonical layout (the decode path): its
+    # device arrays keep every padded shape, so that the patterns of one
+    # signature share one replay program (ops/replay.device_arrays).  Set on
+    # the instance by compile_device, not a field: the fields are the JAX
+    # package's, and a copy by dataclasses.replace runs on its own extents.
+    canonical = False
 
     @property
     def nchunks(self) -> int:
@@ -562,13 +568,15 @@ def compile_device(st: SolveState, CB: int | None = None, canonical: bool = Fals
     out_sel[st.piv_cols] = posfull.astype(np.int32)
     out_sel[st.u_cols] = Lpad + np.arange(u)
 
-    return DeviceSchedule(
+    ds = DeviceSchedule(
         L=L, M=M, M_pad=M_pad, i=i, u=u, CB=CB, Lpad=Lpad, u_pad=u_pad,
         piv_rows=_idx(piv_rows, M_pad - 1), tri=tri,
         sel_rows=_idx(sel_rows, M_pad - 1), bsel=bsel,
         hd_sel=None if hd_sel_vec is None else _idx(hd_sel_vec, 32), mhd=mhd,
         vinv=Vinv, wut=wut, out_sel=_idx(out_sel, Lpad + u),
     )
+    ds.canonical = canonical
+    return ds
 
 
 def _wut_solve(Lpad, u_pad, i, dep_k, dep_pos, ut_k, ut_uc, posmap) -> np.ndarray:

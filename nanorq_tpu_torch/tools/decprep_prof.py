@@ -1,0 +1,149 @@
+"""Where a cold decode block's time goes: its host prep and its device steps
+(counterpart of `tools/decprep_prof.py`).
+
+    python -m nanorq_tpu_torch.tools.decprep_prof [K ...] [--patterns N] [--T T] [--structured] [--device cuda]
+
+At each K (default 1000 5000 10000 50000), 6% source loss and 5% overhead
+(the JAX tool's patterns: seed 99 warms the per-K' caches, seeds 7000 +
+s are timed), each pattern met once, as a receiver meets it.  The host
+prep, timed as `codec.cache.decoder_plan` runs it: `rows` (the patched
+rows), `solve` (the factorization) and `plan` (the dense-W rows, or the
+canonical device schedule of the structured path).  Where the plan is a
+structured one (above `cache.WPATH_MAX_KP`, or at any K with
+`--structured`), the device steps of one block of T bytes a symbol, each
+by the host clock between two synchronisations (what the step adds to a
+block's wall when nothing overlaps it): `arrays` (the schedule's packed
+arrays built and uploaded, `ops/replay.device_arrays`), `lt_plan` (the gap
+ISIs' LT plan), `stage` (the block's live rows staged in pinned memory and
+uploaded, `parallel/mesh.stage`), `copy_in` (the packed arrays into the
+slot of the signature's program; null where no program is cached and the
+replay runs eagerly), `replay` (`ops/program.replay` after the copy-in:
+its prologue, one graph launch and its epilogue; or the eager replay),
+`lt` (the LT combine of the gap rows) and `fetch` (their download into
+pinned memory).  Before the timed patterns, _FREEZE_AFTER + 8 patterns
+walk the structured path (host and device), so that the canonical layout
+has frozen and its signature's program is captured, as in a decoder's
+steady state.
+
+One JSON line per K: per column its least ms over the patterns (`ms`) and
+every pattern's (`ms_all`), the replay's `route` per pattern ("program" or
+"eager"), `host_ms` and `device_ms` (sums of the least), and the card's
+name and power limit.  On `--device cpu` the host clock and the eager
+replay stand in: a rehearsal at a tiny size, no device number.
+"""
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from nanorq_tpu_torch.codec import cache as cc
+from nanorq_tpu_torch.ops import program, wpath
+from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
+from nanorq_tpu_torch.ops.replay import device_arrays
+from nanorq_tpu_torch.parallel import mesh as lanes
+from nanorq_tpu_torch.precode.device_schedule import _FREEZE_AFTER, _pad_rows, compile_device
+from nanorq_tpu_torch.precode.matrix import lt_rows_csr
+from nanorq_tpu_torch.precode.solver import solve_state
+from nanorq_tpu_torch.rfc.params import params_init
+from nanorq_tpu_torch.tools import _sweep
+
+HOST = ("rows", "solve", "plan")
+DEVICE = ("arrays", "lt_plan", "stage", "copy_in", "replay", "lt", "fetch")
+
+
+def pattern(P, K: int, seed: int):
+    """(gaps, isis, overhead) of a 6% loss + 5% overhead pattern (the JAX tool's)."""
+    rng = np.random.default_rng(seed)
+    gaps = np.nonzero(rng.random(K) < 0.06)[0]
+    ov = max(1, int(0.05 * K))
+    isis = np.arange(P.Kp + ov, dtype=np.uint32)
+    rep = (np.arange(K, K + gaps.size + ov) + (P.Kp - K)).astype(np.uint32)
+    isis[gaps] = rep[: gaps.size]
+    isis[P.Kp:] = rep[gaps.size:]
+    return gaps, isis, ov
+
+
+def _plan(P, st, gaps: np.ndarray, structured: bool):
+    """The plan `cache.decoder_plan` builds for st (its path selection), or
+    the canonical schedule when `structured`."""
+    if not structured and P.Kp <= cc.WPATH_MAX_KP and not st.hdpc_used:
+        M_pad = _pad_rows(st.M + 1)
+        return wpath.w_rows_gf2(st, lt_rows_csr(gaps.astype(np.uint32), P), zero_row=M_pad - 1)
+    if not structured and st.hdpc_used and P.Kp <= cc.WPATH_GF256_MAX_KP:
+        M_pad = _pad_rows(st.M + 1)
+        return wpath.w_rows(st, lt_rows_csr(gaps.astype(np.uint32), P), n_cols=M_pad)
+    return compile_device(st, canonical=True)
+
+
+def prof_k(K: int, n: int, T: int, structured: bool, dev, fields) -> dict:
+    P = params_init(K)
+    cuda = dev.type == "cuda"
+    lane = lanes.local_mesh(dev).lanes[0]
+    data = np.random.default_rng(K).integers(0, 256, (P.Kp + max(1, int(0.05 * K)) + 1, T), dtype=np.uint8)
+
+    def wall(fn):
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def block(seed: int) -> tuple:
+        gaps, isis, ov = pattern(P, K, seed)
+        ms = {}
+        rows, ms["rows"] = wall(lambda: cc._patched_rows(P, isis, ov))
+        st, ms["solve"] = wall(lambda: solve_state(P, rows, ov))
+        if st is None:
+            raise AssertionError(f"K={K}: pattern {seed} did not solve")
+        ds, ms["plan"] = wall(lambda: _plan(P, st, gaps, structured))
+        if not hasattr(ds, "tri"):  # a dense-W plan: no structured device steps
+            return ms, None
+        arr, ms["arrays"] = wall(lambda: device_arrays(ds, dev))
+        plan, ms["lt_plan"] = wall(lambda: lt_plan(gaps.astype(np.uint32), P, dev))
+        live = P.Kp + ov
+        D, ms["stage"] = wall(lambda: lanes.stage(lane, (ds.M_pad, T), lambda h: h.numpy().__setitem__(
+            slice(None), data[: h.shape[0]]), rows=live))
+        prog = program.lookup(arr, T, torch.cuda.current_stream(dev).cuda_stream) if cuda else None
+        ms["copy_in"] = wall(lambda: program._copy_in(prog, arr))[1] if prog is not None else None
+        C, ms["replay"] = wall(lambda: program.replay(arr, D))
+        S, ms["lt"] = wall(lambda: lt_combine(C, plan)[: gaps.size])
+        _, ms["fetch"] = wall(lambda: lanes.fetch([(lane, S)]))
+        return ms, "program" if prog is not None else "eager"
+
+    block(99)  # the per-K' caches (rows base, tables), the native library
+    if structured or P.Kp > cc.WPATH_MAX_KP:
+        for s in range(_FREEZE_AFTER + 8):  # the layout frozen, its signature's program captured
+            block(31000 + s)
+    runs = [block(7000 + s) for s in range(n)]
+    cols = HOST + (DEVICE if runs[0][1] is not None else ())
+    ms_all = {c: [r[c] for r, _ in runs] for c in cols}
+    least = {c: min((x for x in v if x is not None), default=None) for c, v in ms_all.items()}
+    line = {"tool": "decprep_prof", "K": K, "Kp": P.Kp, "T": T, "patterns": n,
+            "plan": "structured" if runs[0][1] is not None else "dense-W",
+            "route": [route for _, route in runs], "ms": least, "ms_all": ms_all,
+            "host_ms": sum(least[c] for c in HOST),
+            "device_ms": sum(least[c] or 0.0 for c in DEVICE) if runs[0][1] is not None else None,
+            "timing": "perf_counter"}
+    return _sweep.emit(line, fields)
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("ks", type=int, nargs="*", help="default: 1000 5000 10000 50000")
+    ap.add_argument("--patterns", type=int, default=5, help="fresh patterns timed at each K")
+    ap.add_argument("--T", type=int, default=1280)
+    ap.add_argument("--structured", action="store_true", help="the structured plan at every K")
+    _sweep.add_device(ap)
+    args = ap.parse_args(argv)
+    dev, fields = _sweep.device(args)
+    fields = {k: v for k, v in fields.items() if k != "timing"}
+    return [prof_k(K, args.patterns, args.T, args.structured, dev, fields)
+            for K in args.ks or [1000, 5000, 10000, 50000]]
+
+
+if __name__ == "__main__":
+    main()

@@ -77,7 +77,7 @@ def stages(arr: dict, D: torch.Tensor, plan_all) -> dict:
     def hdpc():
         if hd is not None and hd.numel():
             ix, rows = arr["hd_placed"]
-            gather_xor(gf256_matmul(hd, t1[: hd.shape[1]]), ix, out=zsel, rows=rows)
+            gather_xor(gf256_matmul(hd, t1[: hd.shape[1]]), ix, out=zsel, rows=rows, zero_index=hd.shape[0])
 
     def vinv():
         gf256_matmul(arr["vinv"], zsel, out=xu)

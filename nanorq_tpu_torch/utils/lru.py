@@ -47,19 +47,16 @@ class ByteLRU:
     Entries are (value, cost) pairs; None values are legal (the decoder
     caches rank-deficient outcomes) and cost a nominal constant.  At least
     one entry is always retained so a single over-budget plan still caches.
-    `on_evict(key, value)`, when given, is called for each entry the budget
-    (or `evict`) evicts, after the lock is released.
     """
 
     _MISS = object()
 
-    def __init__(self, budget_bytes: int, name: str, on_evict=None):
+    def __init__(self, budget_bytes: int, name: str):
         self._d: OrderedDict = OrderedDict()
         self._lock = Lock()
         self.budget = int(budget_bytes)
         self.name = name
         self.bytes = 0
-        self.on_evict = on_evict
 
     def get(self, key):
         """(hit, value); hit distinguishes a cached None from a miss."""
@@ -70,12 +67,17 @@ class ByteLRU:
             self._d.move_to_end(key)
             return True, v[0]
 
+    def peek(self, key):
+        """key's value, or None on a miss, leaving the order as it is."""
+        with self._lock:
+            v = self._d.get(key)
+            return None if v is None else v[0]
+
     def put(self, key, value, nbytes: int | None = None) -> None:
         from nanorq_tpu_torch.utils import stats
 
         cost = 64 if value is None else (deep_nbytes(value) if nbytes is None else int(nbytes))
         cost += len(key) if isinstance(key, (bytes, str)) else 0
-        evicted = []
         with self._lock:
             old = self._d.pop(key, self._MISS)
             if old is not self._MISS:
@@ -83,36 +85,22 @@ class ByteLRU:
             self._d[key] = (value, cost)
             self.bytes += cost
             while self.bytes > self.budget and len(self._d) > 1:
-                k, (v, c) = self._d.popitem(last=False)
+                _, (_, c) = self._d.popitem(last=False)
                 self.bytes -= c
                 stats.count(f"{self.name}_evict")
-                evicted.append((k, v))
-        if self.on_evict is not None:
-            for k, v in evicted:
-                self.on_evict(k, v)
 
     def evict(self, keep=None) -> int:
-        """Evict every entry but `keep`'s, counted and passed to `on_evict`
-        as the budget's evictions are; returns the bytes they cost."""
+        """Evict every entry but `keep`'s, counted as the budget's evictions
+        are; returns the bytes they cost."""
         from nanorq_tpu_torch.utils import stats
 
         with self._lock:
-            evicted = [(k, v, c) for k, (v, c) in self._d.items() if k != keep]
-            for k, _, c in evicted:
+            evicted = [(k, c) for k, (_, c) in self._d.items() if k != keep]
+            for k, c in evicted:
                 del self._d[k]
                 self.bytes -= c
                 stats.count(f"{self.name}_evict")
-        if self.on_evict is not None:
-            for k, v, _ in evicted:
-                self.on_evict(k, v)
-        return sum(c for *_, c in evicted)
-
-    def discard(self, key) -> None:
-        """Drop key's entry, if there is one (not counted as an eviction)."""
-        with self._lock:
-            old = self._d.pop(key, self._MISS)
-            if old is not self._MISS:
-                self.bytes -= old[1]
+        return sum(c for _, c in evicted)
 
     def clear(self) -> None:
         with self._lock:

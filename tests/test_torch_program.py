@@ -4,16 +4,20 @@ split replay it captures (`ops/replay.py`: prologue, body, epilogue).
 On the CPU: the split replay against the JAX package's `replay_device` (JAX
 on the CPU, xla backend) byte for byte, on encoder and decode schedules; the
 signature counters; the program cache's policy, with the capture replaced by
-a stub that replays the body eagerly (capture at the second replay of every
-schedule, one program per (arrays, t, stream), eviction by bytes within one
-device's budget, release and the retry after an out-of-memory error, a
-program dies with its arrays, a CPU tensor never reaches the cache, a failed
-capture raises); the launch tape; K1's `overwrite`; the ByteLRU's eviction
-hooks.  On the card (`cuda`): the program against the eager replay bit for
-bit, C that outlives the next replay, two lanes of one card at once, the
-launch counts, a capture inside a capture, the memory an eviction returns,
-and a replay and an upload that need the memory a full cache holds."""
+a stub that replays the body eagerly over the program's slot (capture at the
+second call of every key, one program per (signature, t, stream), eviction
+by bytes within one device's budget, release and the retry after an
+out-of-memory error, a program outlives the schedule that captured it, a CPU
+tensor never reaches the cache, a failed capture raises); the launch tape;
+K1's `overwrite`; the ByteLRU's eviction hooks.  On the card (`cuda`): the
+program against the eager replay bit for bit, C that outlives the next
+replay, two lanes of one card at once, the launch counts, a capture inside a
+capture, the memory an eviction returns, and a replay, an upload and a
+schedule's arrays that need the memory a full cache holds.  The sharing of
+one program by the schedules of a signature: tests/test_torch_shared_program.py."""
 
+import contextlib
+import copy
 import dataclasses
 import gc
 import weakref
@@ -124,7 +128,7 @@ SIG = ("replay_compile_new", "replay_compile_hit")
 
 
 def test_signature_counted_new_then_hit(monkeypatch):
-    monkeypatch.setattr(treplay, "_seen_signatures", set())
+    monkeypatch.setattr(treplay, "_signatures", {})
     ds = _encoder(100)
     before = _counts(*SIG)
     treplay.device_arrays(dataclasses.replace(ds), "cpu")
@@ -140,7 +144,7 @@ def test_signature_counted_new_then_hit(monkeypatch):
 
 
 def test_signature_of_encoder_and_decode_schedules_of_one_kp_differ(monkeypatch):
-    monkeypatch.setattr(treplay, "_seen_signatures", set())
+    monkeypatch.setattr(treplay, "_signatures", {})
     before = _counts(*SIG)
     treplay.device_arrays(dataclasses.replace(_encoder(100)), "cpu")
     treplay.device_arrays(_decode_schedule(100, 10, 5)[0], "cpu")
@@ -177,14 +181,22 @@ def cache(monkeypatch):
         return made[-1], POOL
 
     monkeypatch.setattr(program, "_caches", {})
+    monkeypatch.setattr(program, "_calls", type(program._calls)())
     monkeypatch.setattr(program, "BUDGET", 1 << 40)
     monkeypatch.setattr(program, "capture", capture)
     return program._lru(CPU), made
 
 
+def _copy(ds):
+    """A copy of ds (its fields and its canonical flag) with no arrays cached on it."""
+    ds = copy.copy(ds)
+    ds.__dict__.pop("_torch_arrays", None)
+    return ds
+
+
 def _fresh(ds) -> dict:
     """CPU arrays of a copy of ds that no other test holds."""
-    return treplay.device_arrays(dataclasses.replace(ds), "cpu")
+    return treplay.device_arrays(_copy(ds), "cpu")
 
 
 PROG = ("replay_program_capture", "replay_program_replay", "replay_program_evict")
@@ -213,8 +225,8 @@ def test_capture_at_the_second_replay_of_every_schedule(cache, kind):
         got = program.run(arr, D, stream=7)
         assert torch.equal(got, treplay.replay(arr, D)), call  # every call's own result
         captured = int(call >= 2)
-        assert len(made) == captured and len(program.programs(arr)) == captured
-        assert [g.replays for g in made] == [call - 2] * captured
+        assert len(made) == captured and (program.lookup(arr, 16, 7) is not None) == captured
+        assert [g.replays for g in made] == [call - 1] * captured  # the capturing call replays it too
     assert _delta(before) == {"replay_program_capture": 1, "replay_program_replay": 2, "replay_program_evict": 0}
 
 
@@ -230,58 +242,87 @@ def test_a_width_met_once_captures_nothing(cache, kind):
         D = _D(ds, live, t, t)
         assert torch.equal(program.run(arr, D, stream=7), treplay.replay(arr, D))
         program.run(arr, D, stream=8)  # another stream: a key of its own
-    assert not made and not program.programs(arr) and len(lru) == 0 and _delta(before) == dict.fromkeys(PROG, 0)
+    assert not made and len(lru) == 0 and _delta(before) == dict.fromkeys(PROG, 0)
+    assert not any(program.lookup(arr, t, s) for t in (8, 16, 24, 40) for s in (7, 8))
 
 
 def test_one_program_per_arrays_width_and_stream(cache):
+    """A key is (the arrays' signature, t, stream): two arrays of one
+    schedule (one signature) share their keys' programs, a width or a
+    stream of its own opens a key, and a schedule of another K' too."""
     _, made = cache
     ds = _encoder(100)
     arr, other = _fresh(ds), _fresh(ds)
-    keys = [(arr, 16, 1), (arr, 16, 2), (arr, 32, 1), (other, 16, 1)]
+    small = _encoder(10)
+    ten = _fresh(small)
+    keys = [(arr, 16, 1), (arr, 16, 2), (arr, 32, 1), (other, 16, 1), (ten, 16, 1)]
     for a, t, s in keys + keys + keys:
-        D = _D(ds, 100, t, t + s)
+        d = small if a is ten else ds
+        D = _D(d, 10 if a is ten else 100, t, t + s)
         assert torch.equal(program.run(a, D, stream=s), treplay.replay(a, D))
-    assert len(made) == 4 and all(g.replays == 1 for g in made)
-    assert sorted(program.programs(arr)) == [(16, 1), (16, 2), (32, 1)] and list(program.programs(other)) == [(16, 1)]
+    assert arr["sig"] == other["sig"] != ten["sig"]
+    assert len(made) == 4 and [g.replays for g in made] == [5, 2, 2, 2]  # (16, 1): its second call (other's) captured
+    got = {(t, s): program.lookup(arr, t, s) for t, s in ((16, 1), (16, 2), (32, 1))}
+    assert all(got.values()) and program.lookup(other, 16, 1) is got[(16, 1)]
+    assert program.lookup(ten, 16, 1) not in (None, got[(16, 1)]) and program.lookup(ten, 32, 1) is None
+
+
+STREAMS = (1, 2, 3)
 
 
 def test_programs_evicted_by_bytes_oldest_replayed_first(cache):
     lru, made = cache
     ds = _encoder(100)
-    arrs = [_fresh(ds) for _ in range(3)]
+    arr = _fresh(ds)
     D = _D(ds, 100, 16, 0)
-    for a in arrs:
-        program.run(a, D, stream=1)  # each key's first call: eager
-    program.run(arrs[0], D, stream=1)
+    for s in STREAMS:
+        program.run(arr, D, stream=s)  # each key's first call: eager
+    program.run(arr, D, stream=1)
     one = lru.bytes
-    assert one == POOL + sum(b.numel() for b in program.programs(arrs[0])[(16, 1)].buf.values())
+    prog = program.lookup(arr, 16, 1)
+    assert one == POOL + prog.slot.numel() + sum(b.numel() for b in prog.buf.values())
+    assert prog.slot.numel() == arr["packed"].numel() and prog.slot.data_ptr() != arr["packed"].data_ptr()
+    del prog
     lru.budget = 2 * one  # room for two programs
     before = _counts(*PROG)
-    program.run(arrs[1], D, stream=1)
-    program.run(arrs[0], D, stream=1)  # arrs[0]'s program is now the most recently replayed
-    program.run(arrs[2], D, stream=1)  # evicts arrs[1]'s
+    program.run(arr, D, stream=2)
+    program.run(arr, D, stream=1)  # stream 1's program is now the most recently replayed
+    program.run(arr, D, stream=3)  # evicts stream 2's
     assert _delta(before)["replay_program_evict"] == 1 and lru.bytes == 2 * one and len(lru) == 2
-    assert [bool(program.programs(a)) for a in arrs] == [True, False, True]
+    assert [bool(program.lookup(arr, 16, s)) for s in STREAMS] == [True, False, True]
     gone = weakref.ref(made[1])
     assert gone() is not None
     made.clear()
     assert gone() is None  # the evicted program held the last reference to its graph
-    assert torch.equal(program.run(arrs[1], D, stream=1), treplay.replay(arrs[1], D))  # captured again
+    assert torch.equal(program.run(arr, D, stream=2), treplay.replay(arr, D))  # captured again
     assert _delta(before) == {"replay_program_capture": 3, "replay_program_replay": 1, "replay_program_evict": 2}
-    assert [bool(program.programs(a)) for a in arrs] == [False, True, True]
+    assert [bool(program.lookup(arr, 16, s)) for s in STREAMS] == [False, True, True]
 
 
-def test_a_program_does_not_outlive_its_arrays(cache):
-    lru, _ = cache
+def test_a_program_outlives_the_schedule_that_captured_it(cache):
+    """The cache owns the programs: a schedule that captured one and is
+    dropped leaves it cached, and the next schedule of its signature replays
+    it (through its own arrays, copied into the slot) without a capture."""
+    lru, made = cache
     ds = dataclasses.replace(_encoder(100))
     arr = treplay.device_arrays(ds, "cpu")
-    for _ in range(2):
-        program.run(arr, _D(ds, 100, 16, 0), stream=1)
-    prog = weakref.ref(program.programs(arr)[(16, 1)])
+    for seed in range(2):
+        program.run(arr, _D(ds, 100, 16, seed), stream=1)
+    prog = program.lookup(arr, 16, 1)
     assert len(lru) == 1 and lru.bytes > 0
+    sig = arr["sig"]
     del arr
     ds.__dict__.pop("_torch_arrays")  # the schedule drops its arrays (an evicted decode plan drops all)
-    assert prog() is None and len(lru) == 0 and lru.bytes == 0  # no cycle: freed by reference counts
+    gc.collect()
+    assert len(lru) == 1 and lru.peek(prog.key) is prog  # the cache holds it, not the arrays
+    nxt = _fresh(ds)
+    assert nxt["sig"] == sig and program.lookup(nxt, 16, 1) is prog
+    before = _counts(*PROG, "replay_program_shared")
+    D = _D(ds, 100, 16, 5)
+    assert torch.equal(program.run(nxt, D, stream=1), treplay.replay(nxt, D))
+    assert _delta(before) == {"replay_program_capture": 0, "replay_program_replay": 1, "replay_program_evict": 0,
+                              "replay_program_shared": 1}
+    assert len(made) == 1 and made[0].replays == 2 and prog.last == nxt["uid"] != prog.owner
 
 
 def test_a_cpu_tensor_never_reaches_the_cache(cache):
@@ -292,7 +333,7 @@ def test_a_cpu_tensor_never_reaches_the_cache(cache):
     for seed in range(3):
         D = _D(ds, 100, 16, seed)
         assert torch.equal(program.replay(arr, D), treplay.replay(arr, D))
-    assert "programs" not in arr and not made and len(lru) == 0 and _delta(before) == dict.fromkeys(PROG, 0)
+    assert program.lookup(arr, 16, 0) is None and not made and len(lru) == 0 and _delta(before) == dict.fromkeys(PROG, 0)
 
 
 def test_a_failed_capture_raises_and_caches_nothing(cache, monkeypatch):
@@ -309,21 +350,21 @@ def test_a_failed_capture_raises_and_caches_nothing(cache, monkeypatch):
     launches = dict(kernels.LAUNCHES)
     with pytest.raises(RuntimeError, match="capture failed"):
         program.run(arr, D, stream=1)
-    assert not program.programs(arr) and len(lru) == 0 and kernels.LAUNCHES == launches
+    assert program.lookup(arr, 16, 1) is None and len(lru) == 0 and kernels.LAUNCHES == launches
 
 
-def _captured(ds, n: int, t: int = 16) -> list:
-    """n fresh CPU arrays of ds, each with its program at width t, stream 1."""
-    arrs = [_fresh(ds) for _ in range(n)]
+def _captured(ds, n: int, t: int = 16) -> dict:
+    """Fresh CPU arrays of ds with a program at width t on each of streams 1..n."""
+    arr = _fresh(ds)
     D = _D(ds, 100, t, 0)
-    for a in arrs + arrs:
-        program.run(a, D, stream=1)
-    return arrs
+    for s in list(range(1, n + 1)) * 2:
+        program.run(arr, D, stream=s)
+    return arr
 
 
 def test_each_device_has_a_budget_of_its_own(cache):
     lru, _ = cache
-    arrs = _captured(_encoder(100), 1)  # noqa: F841 (held: a program dies with its arrays)
+    _captured(_encoder(100), 1)
     card = program._lru(torch.device("cuda", 0))
     assert card is not lru and card.budget == lru.budget == program.BUDGET and len(card) == 0
     assert program.cached_bytes(CPU) == program.cached_bytes() == lru.bytes > 0
@@ -332,12 +373,12 @@ def test_each_device_has_a_budget_of_its_own(cache):
 
 def test_release_evicts_the_programs_of_the_device_but_the_one_kept(cache):
     lru, _ = cache
-    arrs = _captured(_encoder(100), 3)
-    keep = program.programs(arrs[1])[(16, 1)]
+    arr = _captured(_encoder(100), 3)
+    keep = program.lookup(arr, 16, 2)
     before = _counts(*PROG)
-    assert program.release(CPU, keep=keep.token) == 2 * keep.nbytes
+    assert program.release(CPU, keep=keep.key) == 2 * keep.nbytes
     assert lru.bytes == keep.nbytes and len(lru) == 1 and _delta(before)["replay_program_evict"] == 2
-    assert [bool(program.programs(a)) for a in arrs] == [False, True, False]
+    assert [bool(program.lookup(arr, 16, s)) for s in STREAMS] == [False, True, False]
     assert program.release(CPU) == keep.nbytes and len(lru) == 0 and program.release(CPU) == 0
 
 
@@ -347,7 +388,7 @@ def _oom():
 
 def test_reclaiming_retries_once_after_releasing_and_raises_when_nothing_is_left(cache):
     lru, _ = cache
-    arrs = _captured(_encoder(100), 2)
+    arr = _captured(_encoder(100), 2)
     seen = []
 
     def fn():
@@ -357,11 +398,11 @@ def test_reclaiming_retries_once_after_releasing_and_raises_when_nothing_is_left
         return "done"
 
     assert program.reclaiming(fn, CPU) == "done" and seen == [2, 0]  # the retry found the cache empty
-    assert not any(program.programs(a) for a in arrs)
+    assert not any(program.lookup(arr, 16, s) for s in STREAMS)
     with pytest.raises(torch.OutOfMemoryError):  # nothing left to release: the error stands
         program.reclaiming(_oom, CPU)
-    arrs = _captured(_encoder(100), 1)
-    kept = program.programs(arrs[0])[(16, 1)].token
+    arr = _captured(_encoder(100), 1)
+    kept = program.lookup(arr, 16, 1).key
     with pytest.raises(torch.OutOfMemoryError):  # only the program kept is left
         program.reclaiming(_oom, CPU, keep=kept)
     assert len(lru) == 1
@@ -375,10 +416,9 @@ def test_a_capture_out_of_memory_gets_the_room_of_the_other_programs(cache, monk
     other programs are evicted, and the capture is made once more."""
     lru, made = cache
     ds = _encoder(100)
-    arrs = _captured(ds, 2)
-    arr = _fresh(ds)
+    arr = _captured(ds, 2)
     D = _D(ds, 100, 24, 5)
-    program.run(arr, D, stream=1)  # eager
+    program.run(arr, D, stream=3)  # eager
     buffers, fails = treplay.buffers, []
 
     def short(*args):
@@ -389,10 +429,11 @@ def test_a_capture_out_of_memory_gets_the_room_of_the_other_programs(cache, monk
 
     monkeypatch.setattr(treplay, "buffers", short)
     before = _counts(*PROG)
-    assert torch.equal(program.run(arr, D, stream=1), treplay.replay(arr, D))
+    assert torch.equal(program.run(arr, D, stream=3), treplay.replay(arr, D))
     assert fails and _delta(before) == {"replay_program_capture": 1, "replay_program_replay": 0,
                                         "replay_program_evict": 2}
-    assert [bool(program.programs(a)) for a in arrs + [arr]] == [False, False, True] and len(lru) == 1
+    assert [bool(program.lookup(arr, t, s)) for t, s in ((16, 1), (16, 2), (24, 3))] == [False, False, True]
+    assert len(lru) == 1
 
 
 def test_save_schedule_keeps_the_fields_alone(cache, tmp_path):
@@ -401,7 +442,7 @@ def test_save_schedule_keeps_the_fields_alone(cache, tmp_path):
     arr = treplay.device_arrays(ds, "cpu")
     for _ in range(2):
         program.run(arr, _D(ds, 100, 16, 0), stream=1)
-    assert program.programs(arr)
+    assert program.lookup(arr, 16, 1)
     path = tmp_path / "enc.sched"
     tcache.save_schedule(ds, str(path))
     back = tcache.load_schedule(str(path))
@@ -441,16 +482,16 @@ def test_gather_xor_overwrite_writes_out():
         kernels.gather_xor(src, idx, out=out, rows=torch.arange(5, dtype=torch.int32), overwrite=True)
 
 
-def test_byte_lru_calls_on_evict_after_the_lock_and_discard_does_not_count():
-    seen = []
-    lru = ByteLRU(100, "t_lru", on_evict=lambda k, v: seen.append((k, v, lru.discard(k))))
+def test_byte_lru_peek_leaves_the_order_and_evict_keeps_one():
+    lru = ByteLRU(1000, "t_lru")
     before = _counts("t_lru_evict")
-    lru.put("a", 1, 60)
-    lru.put("b", 2, 60)  # evicts a; the hook may call back into the cache
-    assert seen == [("a", 1, None)] and len(lru) == 1 and lru.bytes == 60 + 1
-    lru.discard("b")
-    lru.discard("b")
-    assert len(lru) == 0 and lru.bytes == 0 and _delta(before) == {"t_lru_evict": 1}
+    for k in (1, 2, 3):
+        lru.put(k, -k, 100)
+    assert lru.peek(1) == -1 and lru.peek(9) is None
+    lru.put(4, -4, 800)  # over budget: the oldest goes first, and a peek did not refresh 1
+    assert [lru.peek(k) for k in (1, 2, 3, 4)] == [None, -2, -3, -4] and lru.bytes == 1000
+    assert lru.evict(keep=3) == 900 and len(lru) == 1 and lru.bytes == 100
+    assert _delta(before) == {"t_lru_evict": 3} and lru.evict() == 100 and len(lru) == 0
 
 
 # --- on the card ----------------------------------------------------------------
@@ -459,6 +500,13 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def fresh(monkeypatch):
+    """Empty program caches: no program another test captured is found."""
+    monkeypatch.setattr(program, "_caches", {})
+    monkeypatch.setattr(program, "_calls", type(program._calls)())
 
 
 def _on_card(ds, live: int, t: int, seed: int, dev):
@@ -481,7 +529,7 @@ def test_cuda_program_equals_eager_on_encoder_schedules(K, B):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,ov,CB", [(100, 10, 64), (1000, 30, 256)])
-def test_cuda_program_equals_eager_on_decode_schedules(K, ov, CB):
+def test_cuda_program_equals_eager_on_decode_schedules(K, ov, CB, fresh):
     dev = _card()
     ds, rng = _decode_schedule(K, ov, K + ov, CB)
     Kp = params_init(K).Kp
@@ -491,7 +539,7 @@ def test_cuda_program_equals_eager_on_decode_schedules(K, ov, CB):
     want = treplay.replay(arr, Dd)
     for call in range(3):  # eager, the capture, a replay
         assert torch.equal(program.replay(arr, Dd), want), call
-        assert len(program.programs(arr)) == int(call >= 1)
+        assert (program.lookup(arr, Dd.shape[1], torch.cuda.current_stream(dev).cuda_stream) is not None) == (call >= 1)
     assert np.array_equal(want.cpu().numpy(), _jax(ds, D))
 
 
@@ -513,7 +561,7 @@ def test_cuda_c_of_one_block_outlives_the_next_replay():
 
 
 @pytest.mark.cuda
-def test_cuda_two_lanes_of_one_card_replay_one_schedule_at_once():
+def test_cuda_two_lanes_of_one_card_replay_one_schedule_at_once(fresh):
     dev = _card()
     ds = _encoder(1000)
     arr = treplay.device_arrays(ds, dev)
@@ -529,8 +577,7 @@ def test_cuda_two_lanes_of_one_card_replay_one_schedule_at_once():
         for s in streams:
             torch.cuda.current_stream(dev).wait_stream(s)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), rnd
-    progs = program.programs(arr)
-    mine = [progs[(8 * 1280, s.cuda_stream)] for s in streams]  # a program of its own on each lane's stream
+    mine = [program.lookup(arr, 8 * 1280, s.cuda_stream) for s in streams]  # a program of its own on each lane's stream
     assert mine[0] is not mine[1] and mine[0].buf["z"].data_ptr() != mine[1].buf["z"].data_ptr()
 
 
@@ -565,16 +612,15 @@ def test_cuda_a_program_inside_an_outer_capture_runs_inline():
     before = _counts(*PROG)
     with torch.cuda.graph(g, stream=side):
         C = program.replay(arr, D)
-    assert _delta(before) == dict.fromkeys(PROG, 0) and not any(k[1] == side.cuda_stream for k in program.programs(arr))
+    assert _delta(before) == dict.fromkeys(PROG, 0) and program.lookup(arr, 2 * 1280, side.cuda_stream) is None
     g.replay()
     torch.cuda.synchronize(dev)
     assert torch.equal(C, want)
 
 
 @pytest.mark.cuda
-def test_cuda_eviction_returns_the_memory(monkeypatch):
+def test_cuda_eviction_returns_the_memory(fresh):
     dev = _card()
-    monkeypatch.setattr(program, "_caches", {})
     ds = dataclasses.replace(_encoder(1000))
     arr, D = _on_card(ds, 1000, 16 * 1280, 5, dev)
     treplay.replay(arr, D)
@@ -584,7 +630,7 @@ def test_cuda_eviction_returns_the_memory(monkeypatch):
     C = program.replay(arr, D)  # the capture
     del C
     held = torch.cuda.memory_allocated(dev) - base
-    prog = program.programs(arr)[(16 * 1280, torch.cuda.current_stream(dev).cuda_stream)]
+    prog = program.lookup(arr, 16 * 1280, torch.cuda.current_stream(dev).cuda_stream)
     assert held >= sum(b.numel() for b in prog.buf.values())
     del prog
     program._lru(dev).budget = 0
@@ -594,7 +640,7 @@ def test_cuda_eviction_returns_the_memory(monkeypatch):
         program.replay(other, D10)  # a new program: the first is evicted
     gc.collect()
     torch.cuda.synchronize(dev)
-    assert not program.programs(arr)
+    assert program.lookup(arr, 16 * 1280, torch.cuda.current_stream(dev).cuda_stream) is None
     assert torch.cuda.memory_allocated(dev) - base < held / 4
 
 
@@ -606,11 +652,38 @@ def _fill(ds, arr, dev, n: int, B: int) -> None:
             program.replay(arr, D)
 
 
+@contextlib.contextmanager
+def _squeezed(dev, margin: int):
+    """The card's memory taken but for about `margin` bytes -- its free
+    memory and the allocator's cached blocks alike, down to 1 MiB pieces, so
+    that no request of more than `margin` finds room without an eviction --
+    and given back on leaving, also when the body fails."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    reserve = torch.empty(margin, dtype=torch.uint8, device=dev)
+    held, size = [], 1 << 40
+    try:
+        while size >= (1 << 20):
+            try:
+                held.append(torch.empty(size, dtype=torch.uint8, device=dev))
+            except torch.OutOfMemoryError:
+                size //= 2
+        del reserve
+        yield
+    finally:
+        held.clear()
+        torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 def test_cuda_a_replay_and_an_upload_find_the_memory_a_full_cache_holds(monkeypatch):
-    """The card full but for 512 MiB, and a cache full to its budget (2 GiB):
-    a replay at a new width and a lane's upload that need more than is free
-    evict the card's programs, then run, bit for bit."""
+    """The card full but for less than a step needs, and a cache full to its
+    budget (2 GiB): a replay at a new width, a lane's upload and the packed
+    arrays of a cold K=50000 decode pattern (each given half of what it
+    takes) evict the card's programs, then run, bit for bit; the cold
+    pattern's program is captured after it (its slot).  Each allocation of a
+    step is smaller than any program's buffer, so the room an eviction
+    returns serves it whatever the allocator's segments hold."""
     from nanorq_tpu_torch.parallel import mesh as lanes
 
     dev = _card()
@@ -619,24 +692,33 @@ def test_cuda_a_replay_and_an_upload_find_the_memory_a_full_cache_holds(monkeypa
     ds = dataclasses.replace(_encoder(1000))
     arr = treplay.device_arrays(ds, dev)
     lru = program._lru(dev)
-    t = 256 * 1280  # y, z, zsel and C at this width: over 1 GiB
+    t = 32 * 1280  # y, z and C at this width: ~40 MB each, under a program's y at 40 blocks
     _, D = _on_card(ds, 1000, t, 99, dev)
     want = treplay.replay(arr, D)
     host = torch.empty((1000, t), dtype=torch.uint8, pin_memory=True)
     host.copy_(D[:1000].cpu())
-    for step in ("replay", "upload"):
+    cold, rng = _decode_schedule(50000, 2500, 7)
+    Dc = torch.from_numpy(_payload(cold, params_init(50000).Kp + 2500, 1280, rng)).to(dev)
+    want_cold = treplay.replay(treplay.device_arrays(_copy(cold), dev), Dc)
+    packed = treplay._layout(treplay._body_parts(cold)[1])[1]
+    assert packed > (4 << 20)
+    margins = {"replay": ds.Lpad * t, "upload": ds.M_pad * t // 2, "arrays": packed // 2}
+    for step, margin in margins.items():
         _fill(ds, arr, dev, 12, 40)
         assert lru.bytes > (3 << 29) and len(lru) >= 4
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        free, _ = torch.cuda.mem_get_info(dev)
-        ballast = torch.empty(free - (512 << 20), dtype=torch.uint8, device=dev)
-        before = _counts(*PROG)
-        if step == "replay":
-            got = program.replay(arr, D)  # the width's first call: eager, in the room the programs held
-            assert torch.equal(got, want)
-        else:
-            got = lanes.upload(lanes.local_mesh(dev).lanes[0], host, ds.M_pad, 1000)
-            assert torch.equal(got, D)
-        assert _delta(before)["replay_program_evict"] >= 4 and len(lru) == 0, step
-        del got, ballast
+        with _squeezed(dev, margin):
+            before = _counts(*PROG)
+            if step == "replay":
+                got = program.replay(arr, D)  # the width's first call: eager, in the room the programs held
+                assert torch.equal(got, want)
+            elif step == "upload":
+                got = lanes.upload(lanes.local_mesh(dev).lanes[0], host, ds.M_pad, 1000)
+                assert torch.equal(got, D)
+            else:
+                got = treplay.device_arrays(cold, dev)["packed"]
+                assert got.numel() == packed
+            assert _delta(before)["replay_program_evict"] >= 4 and len(lru) == 0, step
+            del got
+    carr = treplay.device_arrays(cold, dev)
+    for _ in range(3):  # eager, the capture (its slot), a replay
+        assert torch.equal(program.replay(carr, Dc), want_cold)

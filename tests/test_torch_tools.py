@@ -1,6 +1,7 @@
 """The port's retuning sweeps (`nanorq_tpu_torch/tools/`: cb_probe,
-slotfill_probe, bsweep, wb_probe, replay_stage_prof) and the main path's
-A/B tool (main_path_ab) at a tiny size on the CPU: their lines, cb_probe's bit-identical C across chunk sizes (and its
+slotfill_probe, bsweep, wb_probe, replay_stage_prof), the cold decode
+block's profile (decprep_prof) and the main path's A/B tool (main_path_ab)
+at a tiny size on the CPU: their lines, cb_probe's bit-identical C across chunk sizes (and its
 refusal of a C that differs), and slotfill_probe's counts against the JAX
 package's `tools/slotfill_probe.py` at the same K."""
 
@@ -19,7 +20,8 @@ import pytest
 import torch
 
 from nanorq_tpu_torch.rfc.params import params_init
-from nanorq_tpu_torch.tools import bsweep, cb_probe, main_path_ab, replay_stage_prof, slotfill_probe, wb_probe
+from nanorq_tpu_torch.tools import (bsweep, cb_probe, decprep_prof, main_path_ab, replay_stage_prof, slotfill_probe,
+                                    wb_probe)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TINY = ["--T", "16", "--device", "cpu"]
@@ -156,3 +158,37 @@ def test_replay_stages_compose_to_the_replay():
         st[name]()
     assert torch.equal(st["out_sel"](), C) and torch.equal(st["full"](), C)
     assert torch.equal(st["lt"](), lt_combine(C, plan))
+
+
+def test_decprep_prof_structured_columns():
+    """A cold block's host prep and device steps at a small K through the
+    structured path: every column timed for every pattern, the copy-in null
+    where the replay runs eagerly (always, on the CPU)."""
+    lines = _run(decprep_prof.main, ["300", "--patterns", "2", "--structured", *TINY])
+    (ln,) = lines
+    assert ln["plan"] == "structured" and ln["route"] == ["eager", "eager"] and set(PRINTED) <= set(ln)
+    assert set(ln["ms"]) == set(decprep_prof.HOST + decprep_prof.DEVICE) and ln["ms"]["copy_in"] is None
+    assert all(len(v) == 2 for v in ln["ms_all"].values())
+    assert all(ln["ms"][c] > 0 for c in decprep_prof.HOST + decprep_prof.DEVICE if c != "copy_in")
+    assert ln["host_ms"] == pytest.approx(sum(ln["ms"][c] for c in decprep_prof.HOST))
+
+
+def test_decprep_prof_follows_the_decoders_path_selection():
+    """Without --structured, a K at or below the dense-W limit times the
+    host prep of its dense-W plan alone, as the JAX tool does."""
+    (ln,) = _run(decprep_prof.main, ["300", "--patterns", "1", *TINY])
+    assert ln["plan"] == "dense-W" and ln["device_ms"] is None and set(ln["ms"]) == set(decprep_prof.HOST)
+
+
+def test_wb_probe_cold_patterns_through_the_structured_forms():
+    """--cold: each fresh pattern once through the canonical schedule's
+    program path, the canonical eager replay and its own layout's, every
+    form's recovered rows the same; on the CPU the program path is eager."""
+    lines = _run(wb_probe.main, ["300", "--cold", "2", *TINY])
+    forms = ("canonical", "canonical_eager", "own_eager")
+    assert [(ln["pattern"], ln["form"]) for ln in lines] == [(p, f) for p in (0, 1) for f in forms]
+    assert all(ln["exact"] and ln["ms"] > 0 and ln["B"] == 1 and set(PRINTED) <= set(ln) for ln in lines)
+    assert [ln["route"] for ln in lines if ln["form"] == "canonical"] == ["eager", "eager"]
+    for p in (0, 1):
+        sig = {ln["form"]: ln["sig"] for ln in lines if ln["pattern"] == p}
+        assert sig["canonical"] == sig["canonical_eager"] != sig["own_eager"]
