@@ -2,7 +2,7 @@
 
 PY ?= python
 
-.PHONY: test test-tpu bench bench-full build-native clean-native roundtrip graph docs soak ubsan-native asan-native sanitize
+.PHONY: test test-tpu bench bench-full build-native clean-native roundtrip graph docs soak ubsan-native asan-native sanitize ubsan-torch asan-torch
 
 test:
 	$(PY) -m pytest tests/ -q
@@ -41,6 +41,19 @@ asan-native:
 	$(PY) tools/asan_drive.py
 
 sanitize: ubsan-native asan-native
+
+# the PyTorch port's native copy (nanorq_tpu_torch/native) under the same
+# sanitizers: UBSan over its native, residual and codec tests; ASan+UBSan
+# preloaded over tools/asan_drive.py, which imports torch (torch survives the preload)
+ubsan-torch:
+	NANORQ_NATIVE_SANITIZE=undefined \
+	$(PY) -m pytest tests/test_torch_host.py tests/test_torch_residual.py tests/test_torch_codec.py -q
+
+asan-torch:
+	NANORQ_NATIVE_SANITIZE=address,undefined \
+	LD_PRELOAD=$$(gcc -print-file-name=libasan.so) \
+	ASAN_OPTIONS=detect_leaks=0 \
+	$(PY) -m nanorq_tpu_torch.tools.asan_drive
 
 # end-to-end file round trip through the CLIs (reference `make test` analog)
 roundtrip:

@@ -84,7 +84,9 @@ Phases, each printing its own lines and its seconds:
    (K = 1000, 4 blocks): cb_probe over two chunk sizes, C bit-identical;
    slotfill_probe; bsweep; wb_probe, every form exact; replay_stage_prof;
    decprep_prof (a cold decode block's host prep and device steps, K = 1000,
-   structured, two patterns);
+   structured, two patterns); hostarm_prof (the host arms' prep, batch call,
+   native call and native stage split, and the dense-W device arm's steps,
+   at K = 1000 over 4 blocks, cold and warm);
 12. program: the replay through the schedule's program (one captured CUDA
    graph between the prologue's two gathers and the epilogue's one) against
    the eager replay, bit for bit, at K=1000 B=32, K=10000 B=4 and 16,
@@ -97,10 +99,17 @@ Phases, each printing its own lines and its seconds:
    through the program of its signature (the second of a signature
    captures, the later ones replay it: `replay_program_shared`), bit for bit
    against the eager replay, per pattern the eager and the program call's
-   ms; then the program counters and the bytes the program cache holds.
+   ms; then the program counters and the bytes the program cache holds;
+13. soak: nanorq_tpu_torch.tools.longfuzz on the card from a fixed seed
+   until 60 s or 60 trials have passed -- random sizes, T, Al, Z, N, loss,
+   overhead, ingestion, delivery order, IO backend, plan path, entry point,
+   decode arm, lanes and program budget -- the first trial at a 1-byte
+   program budget (every capture evicts), the second over 2 lanes; every
+   trial bit-exact, with at least one program captured and one evicted; its
+   `[soak]` line holds the trials and the program counters.
 
 Phases 3, 9 and 10 replay the encoder schedule through its program, as the
-codec does on a card.  Each of the paths 3-4, 6, 7, 8, 9, 10, 11 and 12 runs with the launch counts set
+codec does on a card.  Each of the paths 3-4, 6, 7, 8, 9, 10, 11, 12 and 13 runs with the launch counts set
 to 0 just before it and read just after, and fails if a kernel it runs never
 launched.
 Any failure raises and the script exits non-zero.  The last line is one JSON
@@ -753,15 +762,19 @@ def phase_sweeps() -> dict:
     slotfill_probe, bsweep, wb_probe (every form exact against the dropped
     source rows) and replay_stage_prof, at K = 1000 and 4 blocks; then
     decprep_prof's cold decode blocks at K = 1000 through the structured
-    path (two patterns, the replay through the signature's program)."""
-    from nanorq_tpu_torch.tools import bsweep, cb_probe, decprep_prof, replay_stage_prof, slotfill_probe, wb_probe
+    path (two patterns, the replay through the signature's program), and
+    hostarm_prof at K = 1000 over 4 blocks (every arm cold and warm, each
+    run bit-exact)."""
+    from nanorq_tpu_torch.tools import (bsweep, cb_probe, decprep_prof, hostarm_prof, replay_stage_prof,
+                                        slotfill_probe, wb_probe)
 
     runs = {"cb_probe": (cb_probe.main, ["1000", "128", "256", "--blocks", "4", "--iters", "2"]),
             "slotfill_probe": (slotfill_probe.main, ["1000"]),
             "bsweep": (bsweep.main, ["1000", "4", "--iters", "2"]),
             "wb_probe": (wb_probe.main, ["1000", "--bs", "4", "--iters", "2"]),
             "replay_stage_prof": (replay_stage_prof.main, ["1000", "4", "2"]),
-            "decprep_prof": (decprep_prof.main, ["1000", "--structured", "--patterns", "2"])}
+            "decprep_prof": (decprep_prof.main, ["1000", "--structured", "--patterns", "2"]),
+            "hostarm_prof": (hostarm_prof.main, ["1000", "--blocks", "4", "--iters", "1"])}
     got = {}
     for name, (fn, argv) in runs.items():
         t0 = time.perf_counter()
@@ -927,6 +940,28 @@ def _decode_shared(dev, smi: str) -> dict:
             "replays": d["replay_program_replay"], "cached_MB": round(program.cached_bytes() / 2**20, 1),
             "card": smi}
     _say("program", **{k: json.dumps(v) if isinstance(v, (dict, list, str)) else v for k, v in line.items()})
+    return line
+
+
+SOAK_SEED = 7_000_000  # phase 13's first seed (longfuzz.BASE_SEED)
+SOAK_S, SOAK_TRIALS = 60, 60  # it stops at whichever comes first
+SOAK_FORCED = ({"budget": 1}, {"lanes": 2})  # trial 0 at a 1-byte program budget, trial 1 over two lanes
+
+
+def phase_soak(dev) -> dict:
+    """Phase 13: the soak (nanorq_tpu_torch/tools/longfuzz.py) on the card
+    from SOAK_SEED until SOAK_S seconds or SOAK_TRIALS trials have passed,
+    the first trials forced as SOAK_FORCED says; every trial bit-exact (the
+    tool raises at the first that is not), and the phase fails unless a
+    program was captured and one evicted.  Prints the `[soak]` line."""
+    from nanorq_tpu_torch.tools import longfuzz
+
+    line = longfuzz.soak(SOAK_SEED, dev, minutes=SOAK_S / 60, trials=SOAK_TRIALS, forced=SOAK_FORCED, quiet=True)
+    print("[soak] " + json.dumps(line), flush=True)
+    if line["trials"] < len(SOAK_FORCED):
+        raise AssertionError(f"the soak ran {line['trials']} trials, fewer than the {len(SOAK_FORCED)} forced ones")
+    if not (line["replay_program_capture"] > 0 and line["replay_program_evict"] > 0):
+        raise AssertionError(f"the soak captured or evicted no program: {json.dumps(line)}")
     return line
 
 
@@ -1168,6 +1203,17 @@ def main() -> None:
     if kernels.take_index_errors(dev):
         raise AssertionError("a gather of the program phase met an index outside its source")
     _say("programs", launches=json.dumps(program_launches), seconds=f"{time.perf_counter() - t0:.2f}")
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()  # the soak starts here
+    soak = phase_soak(dev)  # phase 13
+    soak_launches = dict(kernels.LAUNCHES)  # and ends here
+    if not all(soak_launches[n] > 0 for n in ("gather_xor", "gf2_matmul", "gf256_matmul")):
+        raise AssertionError(f"the soak missed a kernel: {soak_launches}")
+    if kernels.take_index_errors(dev):
+        raise AssertionError("a gather of the soak met an index outside its source")
+    _say("soak", trials=soak["trials"], launches=json.dumps(soak_launches),
+         seconds=f"{time.perf_counter() - t0:.2f}")
     _say("phase", name="all", seconds=f"{time.perf_counter() - t_start:.2f}")
 
     print(json.dumps({"kernels": [

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from nanorq_tpu_torch.device import resolve
-from nanorq_tpu_torch.ops import wpath
+from nanorq_tpu_torch.ops import program, wpath
 from nanorq_tpu_torch.precode.device_schedule import DeviceSchedule, _pad_rows, compile_device
 from nanorq_tpu_torch.precode.matrix import CSRRows, binary_rows, lt_rows_csr
 from nanorq_tpu_torch.precode.solver import solve_state
@@ -325,15 +325,18 @@ class WSchedule:
 
     def staged(self, device) -> dict:
         """The tensors on `device`: {"bits", "rows"} (GF(2), rows as an
-        [kq, 1] gather) or {"W"} (GF(256), columns cut to M_pad)."""
+        [kq, 1] gather) or {"W"} (GF(256), columns cut to M_pad), each
+        uploaded into memory that `ops/program.reclaiming` finds."""
         dev = resolve(device)
         t = self._staged.get(dev)
         if t is None:
+            def up(a):
+                return program.reclaiming(lambda: torch.from_numpy(np.ascontiguousarray(a)).to(dev), dev)
+
             if self.Wbits is not None:
-                t = {"bits": torch.from_numpy(np.ascontiguousarray(self.Wbits)).to(dev),
-                     "rows": torch.from_numpy(np.ascontiguousarray(self.rows, np.int32).reshape(-1, 1)).to(dev)}
+                t = {"bits": up(self.Wbits), "rows": up(np.asarray(self.rows, np.int32).reshape(-1, 1))}
             else:
-                t = {"W": torch.from_numpy(np.ascontiguousarray(self.W[:, : self.M_pad])).to(dev)}
+                t = {"W": up(self.W[:, : self.M_pad])}
             self._staged[dev] = t
         return t
 

@@ -12,7 +12,9 @@ given to gather_v2 (`take_count_errors`).
 
 Every wrapper takes an optional `out`: when given, the result is XORed into
 it in place (the replay accumulates gathers and products into row blocks it
-owns) instead of being returned in a fresh tensor.
+owns) instead of being returned in a fresh tensor.  A fresh output on a card
+comes from `ops/program.empty`: where the card is out of memory, its cached
+replay programs are evicted and the allocation is made once more.
 
 A launch captured into a CUDA graph (`ops/program.py`) does not run where it
 is captured: inside `tape()` the wrappers count and record it on a `Tape`,
@@ -77,6 +79,14 @@ def _launch(name: str, fn, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
+
+
+def _fresh(shape: tuple, dev: torch.device) -> torch.Tensor:
+    """An uninitialized uint8 output on the card `dev`, reclaiming the card's
+    replay programs where it is out of memory (`ops/program.empty`)."""
+    from nanorq_tpu_torch.ops import program  # program imports this module
+
+    return program.empty(shape, torch.uint8, dev)
 
 
 def _stream(dev: torch.device) -> int:
@@ -236,7 +246,7 @@ def gather_xor(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = 
             return out.copy_(gfmat.xor_reduce_gather(src, idx, zero_index=zero_index))
         return gfmat.xor_reduce_gather(src, idx, out=out, rows=rows, zero_index=zero_index)
     acc = out is not None and not overwrite
-    res = out if out is not None else torch.empty((n, t), dtype=torch.uint8, device=src.device)
+    res = out if out is not None else _fresh((n, t), src.device)
     if n and t:
         lib = _build.load()
         with torch.cuda.device(src.device):
@@ -293,9 +303,9 @@ def gf2_matmul(bits: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = N
             res[j] = gfmat.gf2_matmul(gfmat.unpack_bits(bits[j])[:, :k], X[j])
         return _plain(res, out)
     if k == 0:  # an empty contraction: nothing to launch
-        return out if out is not None else X.new_zeros(shape)
+        return out if out is not None else _fresh(shape, X.device).zero_()
     acc = out is not None
-    res = out if acc else torch.empty(shape, dtype=torch.uint8, device=X.device)
+    res = out if acc else _fresh(shape, X.device)
     if nb and m and t:
         A = _words(bits)
         pa = A.shape[-1]
@@ -364,9 +374,9 @@ def gf256_matmul(M: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = No
     if _device_kind(M, X) == "cpu":
         return _plain(gfmat.gf256_matmul_batch(M, X) if dim == 3 else gfmat.gf256_matmul(M, X), out)
     if k == 0:  # an empty contraction: nothing to launch
-        return out if out is not None else X.new_zeros(shape)
+        return out if out is not None else _fresh(shape, X.device).zero_()
     acc = out is not None
-    res = out if acc else torch.empty(shape, dtype=torch.uint8, device=X.device)
+    res = out if acc else _fresh(shape, X.device)
     if nb and m and t:
         lib = _build.load()
         if gf256_form(m, t) == GF256_M4R:
@@ -573,7 +583,7 @@ def gather_v1(src: torch.Tensor, idx: torch.Tensor, mode: int = 2, *, R: int = P
     S, t, n, w, kind = _probe_args("gather_v1", src, idx, R)
     if kind == "cpu":
         return gfmat.xor_reduce_gather(src, idx)
-    res = torch.empty((n, t), dtype=torch.uint8, device=src.device)
+    res = _fresh((n, t), src.device)
     return _probe_launch("gather_v1", _build.load().nrq_gather_v1, src, res, src.data_ptr(), S, t,
                          idx.data_ptr(), n, w, mode, R, res.data_ptr(),
                          _flag(_INDEX_ERR, src.device).data_ptr(), check=check)
@@ -597,7 +607,7 @@ def gather_v2(src: torch.Tensor, idx: torch.Tensor, cnt: torch.Tensor, sentinel:
         if not torch.equal(cnt, probe_counts(idx, sentinel, R)):
             raise ValueError("gather_v2: cnt differs from the count of non-sentinel slots")
         return gfmat.xor_reduce_gather_skip(src, idx, sentinel)
-    res = torch.empty((n, t), dtype=torch.uint8, device=src.device)
+    res = _fresh((n, t), src.device)
     return _probe_launch("gather_v2", _build.load().nrq_gather_v2, src, res, src.data_ptr(), S, t,
                          idx.data_ptr(), n, w, cnt.data_ptr(), sentinel, R, res.data_ptr(),
                          _flag(_INDEX_ERR, src.device).data_ptr(),
@@ -613,7 +623,7 @@ def gather_db(src: torch.Tensor, idx: torch.Tensor, *, R: int = PROBE_R,
     S, t, n, w, kind = _probe_args("gather_db", src, idx, R)
     if kind == "cpu":
         return gfmat.xor_reduce_gather(src, idx)
-    res = torch.empty((n, t), dtype=torch.uint8, device=src.device)
+    res = _fresh((n, t), src.device)
     return _probe_launch("gather_db", _build.load().nrq_gather_db, src, res, src.data_ptr(), S, t,
                          idx.data_ptr(), n, w, R, res.data_ptr(),
                          _flag(_INDEX_ERR, src.device).data_ptr(), check=check)

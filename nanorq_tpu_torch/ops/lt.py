@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from nanorq_tpu_torch.device import resolve
+from nanorq_tpu_torch.ops import program
 from nanorq_tpu_torch.ops.kernels import gather_xor
 from nanorq_tpu_torch.ops.replay import _idx, apply_plan, placed
 from nanorq_tpu_torch.precode.device_schedule import _gather_plan_flat
@@ -160,5 +161,5 @@ def lt_combine(C: torch.Tensor, plan: LTPlan) -> torch.Tensor:
         out = gather_xor(C, plan.passes[0], zero_index=L)
         passes = plan.passes[1:]
     else:  # rows no class places (degree 0, padding) stay zero
-        out, passes = C.new_zeros(plan.n_pad, C.shape[1]), []
+        out, passes = program.empty((plan.n_pad, C.shape[1]), C.dtype, C.device).zero_(), []
     return apply_plan(C, passes, plan.placed, out, zero_index=L)

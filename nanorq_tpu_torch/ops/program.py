@@ -12,7 +12,10 @@ plan, HDPC, Vinv, Wut) with one `graph.replay()`, and runs
 schedule's arrays is an address of the graph, so a caller may pass any D,
 keeps its own C, and every schedule of the program's signature replays it.
 
-A program belongs to (the signature, the width t, the stream): its key.  It
+A program belongs to (the signature, the width t, the stream, the device of
+the schedule's arrays): its key.  The device is part of it because the id of
+every card's default stream is 0 and signature numbers are global: a key's
+calls on one card do not count toward its capture on another.  It
 owns its graph, its buffers (y, z, zsel) and its slot, one flat uint8 buffer
 of the signature's layout (`ops/replay.views`) that the body was captured
 over; a replay copies the calling schedule's `packed` buffer into the slot
@@ -40,18 +43,21 @@ not count where they are captured (`kernels.tape`); each replay adds them
 The cache owns the programs: a program outlives the schedule that captured
 it and serves the next schedule of its signature.  A program holds its
 buffers (y and z are [~L, t] each: about 0.7 GB at K=1000, t = 256000), its
-slot and its graph's private pool for as long as it is cached.  Each
-device's programs together are bounded by bytes (env NANORQ_PROGRAM_CACHE_MB
-per device, default 4096): the least recently replayed is evicted first, and
-an evicted program frees its graph, pool, slot and buffers.  When a card
-runs out of memory in a replay, in an upload of a schedule's arrays
+slot and its graph's private pool for as long as it is cached.  Each device's
+programs together are bounded by bytes (env NANORQ_PROGRAM_CACHE_MB per
+device, default 4096): the least recently replayed is evicted first, and an
+evicted program frees its graph, pool, slot and buffers.  When a card runs
+out of memory in a replay, in an upload of a schedule's arrays
 (`ops/replay.device_arrays`) or of the lanes (`parallel/mesh.stage`,
-`upload`), that card's other programs are evicted and the call is made once
-more (`reclaiming`); an allocation elsewhere may call `release(device)`
-first.  Counters in `utils.stats`: replay_program_capture,
-replay_program_replay, replay_program_shared (a replay by another schedule
-than the one that captured the program), replay_program_evict; the
-capture's host time is the timer replay_program_capture_s.
+`upload`), in a kernel's fresh output (`ops/kernels.py`), in the LT
+combine's output, the W products' operands or a dense-W plan's upload, that
+card's other programs are evicted and the call is made once more
+(`reclaiming`, `empty`); nothing is evicted inside a stream capture, whose
+caller reclaims once the capture has ended (`run`).  Counters in
+`utils.stats`: replay_program_capture, replay_program_replay,
+replay_program_shared (a replay by another schedule than the one that
+captured the program), replay_program_evict; the capture's host time is the
+timer replay_program_capture_s.
 
 Nothing is captured on the CPU: the replay runs eagerly there (JAX on the
 CPU, too, dispatches the same ops).  A caller that is capturing a graph
@@ -120,7 +126,11 @@ def release(device, keep: tuple | None = None) -> int:
 
 def reclaiming(fn, device: torch.device, keep: tuple | None = None):
     """fn(), and where the card is out of memory, fn() once more after
-    `release(device, keep)`; raises when there was nothing to release."""
+    `release(device, keep)`; raises when there was nothing to release.
+    Inside a stream capture, fn() alone: no graph is freed while one is
+    being captured, and the capture's caller reclaims after it (`run`)."""
+    if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return fn()
     try:
         return fn()
     except torch.OutOfMemoryError:
@@ -166,7 +176,7 @@ def replay(arr: dict, D: torch.Tensor) -> torch.Tensor:
 
 
 def _key(arr: dict, t: int, stream: int) -> tuple:
-    return arr["sig"], t, stream
+    return arr["sig"], t, stream, arr["packed"].device
 
 
 def lookup(arr: dict, t: int, stream: int) -> Program | None:

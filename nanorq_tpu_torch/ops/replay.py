@@ -60,8 +60,14 @@ _DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32}
 def _idx(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Index array -> int32 tensor (schedules store uint16 where it fits;
     torch's uint16 supports few ops, and the gather kernel reads int32).
-    Always a copy, so a CPU tensor never aliases a read-only array."""
-    return torch.from_numpy(np.array(a, np.int32)).to(dev)
+    Always a copy, so a CPU tensor never aliases a read-only array; on a
+    card, in memory that `ops/program.empty` finds."""
+    host = torch.from_numpy(np.array(a, np.int32))
+    if torch.device(dev).type != "cuda":
+        return host
+    from nanorq_tpu_torch.ops import program  # program imports this module
+
+    return program.empty(tuple(host.shape), torch.int32, dev).copy_(host)
 
 
 def _col(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -209,17 +215,6 @@ def _upload(parts: list, layout: tuple, nbytes: int, dev: torch.device) -> torch
     return flat
 
 
-def _selector(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A row selector of the prologue or the epilogue ([n, 1] int32, `_col`)
-    on `dev`, in memory that `ops/program.empty` finds."""
-    host = _col(a, "cpu")
-    if dev.type != "cuda":
-        return host
-    from nanorq_tpu_torch.ops import program  # program imports this module
-
-    return program.empty(tuple(host.shape), torch.int32, dev).copy_(host)
-
-
 def device_arrays(ds: DeviceSchedule, device) -> dict:
     """A DeviceSchedule's tensors on `device`, cached on the schedule.
 
@@ -239,9 +234,9 @@ def device_arrays(ds: DeviceSchedule, device) -> dict:
     skeleton, parts = _body_parts(ds)
     layout, nbytes = _layout(parts)
     arr = {
-        "piv_rows": _selector(ds.piv_rows, dev),
-        "sel_rows": _selector(ds.sel_rows, dev),
-        "out_sel": _selector(ds.out_sel, dev),
+        "piv_rows": _col(ds.piv_rows, dev),
+        "sel_rows": _col(ds.sel_rows, dev),
+        "out_sel": _col(ds.out_sel, dev),
         "skeleton": skeleton,
         "layout": layout,
         "sig": _number(signature(skeleton, layout, ds.out_sel.shape[0])),

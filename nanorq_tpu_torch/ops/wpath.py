@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from nanorq_tpu_torch.native import get_lib as _native
+from nanorq_tpu_torch.ops import program
 from nanorq_tpu_torch.ops.kernels import gf2_matmul, gf256_matmul
 from nanorq_tpu_torch.ops.replay import take_rows
 from nanorq_tpu_torch.precode.device_schedule import _pad_rows
@@ -221,8 +222,9 @@ def w_apply_gf2_batch(bits: torch.Tensor, rows: torch.Tensor, D: torch.Tensor) -
 
 def w_apply_gf256_batch(W: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     """Stacked GF(256) W apply: W [nb, m, k], D [nb, M_pad, t] -> [nb, m, t],
-    one batched K3 launch."""
-    return gf256_matmul(W, D[:, : W.shape[2]].contiguous())
+    one batched K3 launch.  The columns of D it reads are copied first, in
+    memory that `ops/program.empty` finds."""
+    return gf256_matmul(W, program.reclaiming(D[:, : W.shape[2]].contiguous, D.device))
 
 
 def res_apply_batch(W: torch.Tensor, D0: torch.Tensor, R: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -238,7 +240,7 @@ def res_apply_batch(W: torch.Tensor, D0: torch.Tensor, R: torch.Tensor, y: torch
     that by R.  JAX expands W and R to companion bits on the device
     (`_companion_dev`) because its kernel takes bit planes; K3 takes the byte
     matrices as they are, so no companion step runs here."""
-    yhat = y.clone()
+    yhat = program.reclaiming(y.clone, y.device)
     gf256_matmul(W, D0, out=yhat)
     return gf256_matmul(R, yhat)
 

@@ -81,6 +81,12 @@ assert all(ln["C_equal"] for ln in cb_probe.main(["100", "64", "128", "--blocks"
 assert slotfill_probe.main(["300"]) and bsweep.main(["100", "1", "--iters", "1", *tiny])
 assert all(ln["exact"] for ln in wb_probe.main(["300", "--bs", "1", "--iters", "1", *tiny]))
 assert replay_stage_prof.main(["100", "1", "1", *tiny])
+# the soak, one ASan round trip and the host-arm profiler, each at a tiny point
+from nanorq_tpu_torch.tools import asan_drive, hostarm_prof, longfuzz
+assert longfuzz.run_trial(7000104, "cpu")["seed"] == 7000104
+if native_available():
+    assert asan_drive.drive(100, 64, 3, 0.08, 1, "host")["backend"] == "host" and asan_drive.no_jax()
+    assert len(hostarm_prof.main(["30", "--blocks", "2", "--iters", "1", *tiny])) == 3
 print("jax" in sys.modules, sorted(m for m in sys.modules if m.split(".")[0] == "nanorq_tpu"))
 """
 

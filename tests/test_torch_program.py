@@ -450,6 +450,122 @@ def test_save_schedule_keeps_the_fields_alone(cache, tmp_path):
     assert np.array_equal(back.out_sel, ds.out_sel) and back.Lpad == ds.Lpad
 
 
+
+# --- a key holds its device; every allocation on a card can reclaim -----------
+
+class _On:
+    """What `program.run` reads of a tensor before it runs anything, on a
+    device of our choosing: its device and its shape (no card needed)."""
+
+    def __init__(self, device: str, shape: tuple = (0,)):
+        self.device, self.shape = torch.device(device), shape
+
+
+def test_a_keys_calls_on_one_card_do_not_count_on_another(cache, monkeypatch):
+    """The default stream of every card has the id 0 and signature numbers
+    are global: the same signature, width and stream on cuda:1 is a key of
+    its own, whose first call runs eagerly (it captures at its second)."""
+    ran = []
+    monkeypatch.setattr(treplay, "replay", lambda arr, D: ran.append(("eager", str(D.device))))
+    monkeypatch.setattr(program, "_build", lambda arr, D, key: ran.append(("capture", str(D.device))))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)  # no card, no capture
+    arr = {d: {"sig": 7, "packed": _On(d)} for d in ("cuda:0", "cuda:1")}
+    for d in ("cuda:0", "cuda:0", "cuda:1", "cuda:1"):
+        program.run(arr[d], _On(d, (12, 16)), stream=0)
+    assert ran == [("eager", "cuda:0"), ("capture", "cuda:0"), ("eager", "cuda:1"), ("capture", "cuda:1")]
+    assert program._key(arr["cuda:0"], 16, 0) != program._key(arr["cuda:1"], 16, 0)
+    assert program._key(arr["cuda:0"], 16, 0)[:3] == program._key(arr["cuda:1"], 16, 0)[:3]
+
+
+@contextlib.contextmanager
+def _card_branch(monkeypatch):
+    """The wrappers take their card branch on CPU tensors, launching a stub
+    library that computes nothing: what runs is each wrapper's own
+    allocation of its output."""
+    class _Lib:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    monkeypatch.setattr(kernels, "_device_kind", lambda *xs: "cuda")
+    monkeypatch.setattr(kernels._build, "load", lambda: _Lib())
+    monkeypatch.setattr(kernels, "_stream", lambda dev: 0)
+    monkeypatch.setattr(kernels, "_flag", lambda flags, dev: torch.zeros(1, dtype=torch.int32))
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(kernels.LAUNCHES))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    yield
+
+
+class _OOMOnce:
+    """`fn` raising torch.OutOfMemoryError at its first call after `arm()`."""
+
+    def __init__(self, fn):
+        self.fn, self.armed, self.raised = fn, False, 0
+
+    def arm(self):
+        self.armed = True
+
+    def __call__(self, *args, **kw):
+        if self.armed:
+            self.armed = False
+            self.raised += 1
+            _oom()
+        return self.fn(*args, **kw)
+
+
+def _step(name: str):
+    """A call of `name` whose first allocation on the device is its output
+    (or, for `w_upload`, a dense-W plan's first upload), and the shape of
+    what it gives."""
+    rng = np.random.default_rng(3)
+    X = torch.from_numpy(rng.integers(0, 256, (24, 40), dtype=np.uint8))
+    if name == "gather_xor":
+        idx = torch.from_numpy(rng.integers(0, 24, (9, 3)).astype(np.int32))
+        return lambda: kernels.gather_xor(X, idx).shape, (9, 40)
+    if name == "gf2_matmul":
+        bits = torch.from_numpy(rng.integers(0, 256, (5, 3), dtype=np.uint8))
+        return lambda: kernels.gf2_matmul(bits, X).shape, (5, 40)
+    if name == "gf256_matmul":
+        M = torch.from_numpy(rng.integers(0, 256, (6, 24), dtype=np.uint8))
+        return lambda: kernels.gf256_matmul(M, X).shape, (6, 40)
+    if name == "lt_combine":  # the systematic window's sorted plan: its output is zeroed first
+        from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
+
+        P = params_init(10)
+        plan = lt_plan(np.arange(P.Kp, dtype=np.uint32), P, "cpu")
+        C = torch.from_numpy(rng.integers(0, 256, (P.L, 40), dtype=np.uint8))
+        assert not plan.passes
+        return lambda: lt_combine(C, plan).shape, (plan.n_pad, 40)
+    W = tcache.WSchedule(64, 5, Wbits=rng.integers(0, 256, (5, 8), dtype=np.uint8),
+                         rows=np.arange(64, dtype=np.int32))
+    return lambda: tuple(W.staged("cpu")["bits"].shape), (8, 8)
+
+
+F9_STEPS = ("gather_xor", "gf2_matmul", "gf256_matmul", "lt_combine", "w_upload")
+
+
+@pytest.mark.parametrize("name", F9_STEPS)
+def test_an_output_out_of_memory_releases_the_programs_and_succeeds(cache, monkeypatch, name):
+    """K1, K2 and K3's fresh outputs, the LT combine's and a dense-W plan's
+    uploads: where the device is out of memory, its programs are evicted and
+    the allocation succeeds at the second try; with nothing cached, the
+    error stands."""
+    lru, _ = cache
+    alloc = _OOMOnce(torch.from_numpy if name == "w_upload" else torch.empty)
+    monkeypatch.setattr(torch, alloc.fn.__name__, alloc)
+    with _card_branch(monkeypatch) if name in F9_STEPS[:3] else contextlib.nullcontext():
+        fn, shape = _step(name)
+        arr = _captured(_encoder(100), 2)
+        before = _counts(*PROG)
+        alloc.arm()
+        assert fn() == shape and alloc.raised == 1
+        assert len(lru) == 0 and _delta(before)["replay_program_evict"] == 2
+        assert not any(program.lookup(arr, 16, s) for s in (1, 2))
+        fn, _ = _step(name)
+        alloc.arm()
+        with pytest.raises(torch.OutOfMemoryError):
+            fn()
+        assert alloc.raised == 2
+
 # --- the tape, K1's overwrite, the LRU's hook ---------------------------------
 
 def test_tape_keeps_captured_launches_out_and_play_adds_them():
@@ -722,3 +838,81 @@ def test_cuda_a_replay_and_an_upload_find_the_memory_a_full_cache_holds(monkeypa
     carr = treplay.device_arrays(cold, dev)
     for _ in range(3):  # eager, the capture (its slot), a replay
         assert torch.equal(program.replay(carr, Dc), want_cold)
+
+
+@pytest.mark.cuda
+def test_cuda_the_first_call_of_a_key_on_a_second_card_captures_nothing(fresh):
+    """One schedule's key, captured on cuda:0 at its second call: its first
+    call on cuda:1 (the same signature, width and default stream id) runs
+    eagerly, and its second captures a program of cuda:1's own."""
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    ds = _encoder(1000)
+    got = {}
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        arr, D = _on_card(ds, 1000, 2 * 1280, 8, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        want = treplay.replay(arr, D)
+        calls = []
+        for _ in range(2):
+            before = _counts(*PROG)
+            with torch.cuda.device(dev):
+                assert torch.equal(program.replay(arr, D), want)
+            calls.append(_delta(before)["replay_program_capture"])
+        got[dev.index] = (calls, program.lookup(arr, 2 * 1280, stream))
+    assert got[0][0] == got[1][0] == [0, 1]
+    assert got[1][1] is not None and got[1][1] is not got[0][1] and got[1][1].key[3] == torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+def test_cuda_the_lt_combine_a_dense_w_decode_and_a_res_product_find_the_memory_a_full_cache_holds(monkeypatch):
+    """The card full but for less than a step's first output needs, and a
+    cache full to its budget (2 GiB): the LT combine of 1000 repair ISIs, a
+    dense-W plan's decode (K1's gather of the payload rows, then K2) and a
+    residual product (the copy of y, then two K3) evict the card's programs,
+    then give the bytes they gave before the card was full."""
+    from nanorq_tpu_torch.native import native_available
+    from nanorq_tpu_torch.ops import wpath
+    from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
+
+    dev = _card()
+    if not native_available():
+        pytest.skip("the dense-W plan needs the native solver")
+    monkeypatch.setattr(program, "_caches", {})
+    monkeypatch.setattr(program, "BUDGET", 2 << 30)
+    ds = dataclasses.replace(_encoder(1000))
+    arr = treplay.device_arrays(ds, dev)
+    lru = program._lru(dev)
+    t = 32 * 1280
+    _, D = _on_card(ds, 1000, t, 98, dev)
+    C = treplay.replay(arr, D)
+    P = params_init(1000)
+    plan = lt_plan(np.arange(P.Kp, P.Kp + 1000, dtype=np.uint32), P, dev)
+    rng = np.random.default_rng(5)
+    gaps = np.sort(rng.choice(1000, 60, replace=False))
+    isis = np.arange(P.Kp + 10, dtype=np.uint32)
+    isis[gaps] = np.arange(P.Kp, P.Kp + 60, dtype=np.uint32)
+    isis[P.Kp:] = np.arange(P.Kp + 60, P.Kp + 70, dtype=np.uint32)
+    tcache.clear_decoder_cache()
+    wplan = tcache.decoder_plan(P, isis, 10)
+    assert isinstance(wplan, tcache.WSchedule) and wplan.Wbits is not None
+    wplan.staged(dev)
+    Dw = torch.zeros((wplan.M_pad, t), dtype=torch.uint8, device=dev)
+    Dw[: P.Kp + 10] = torch.from_numpy(rng.integers(0, 256, (P.Kp + 10, t), dtype=np.uint8)).to(dev)
+    nb, nr, k, g = 4, 80, 1100, 60
+    res = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+           for shape in ((nb, nr, k), (nb, k, 1280 * 8), (nb, g, nr), (nb, nr, 1280 * 8))]
+    steps = {"lt": (lambda: lt_combine(C, plan), plan.n_pad * t // 2),
+             "dense_w": (lambda: wplan.apply(Dw), wplan.rows.size * t // 2),
+             "res": (lambda: wpath.res_apply_batch(*res), res[3].numel() // 2)}
+    want = {name: fn() for name, (fn, _) in steps.items()}
+    for name, (fn, margin) in steps.items():
+        _fill(ds, arr, dev, 12, 40)
+        assert lru.bytes > (3 << 29) and len(lru) >= 4
+        with _squeezed(dev, margin):
+            before = _counts(*PROG)
+            got = fn()
+            assert torch.equal(got, want[name]), name
+            assert _delta(before)["replay_program_evict"] >= 4 and len(lru) == 0, name
+            del got
