@@ -33,17 +33,23 @@ Phases, each printing its own lines and its seconds:
 4. decode: 6% source loss + 5% repair overhead per block, recovered by
    Decoder.repair_all(backend="device") (at K=1000 every plan is a dense-W
    one; a structured plan would replay its program from its second
-   replay on); the warm run must take one K1 and
-   one K2 launch per stacked batch of blocks; its first K1 launch (a stacked
-   gather at t = 1280) is timed after the main path as the encode's are;
-   the device memory as in phase 3;
+   replay on); each block's received rows sit in the decoder's pinned
+   ingestion slab and are uploaded from there as they are; the warm run
+   must take one K2 and two K1 launches per stacked batch of blocks (the
+   placement of the repair rows into the stack, then the stacked gather);
+   its first two K1 launches (the placement, and the stacked gather at
+   t = 1280) are timed after the main path as the encode's are; each run's
+   ingestion ms, the repair's host staging ms and the bytes its ingestion
+   slabs hold and pin (`[decode-ingest]` lines); the device memory as in
+   phase 3;
 5. checks and times: the systematic property on every block, one block
    against the numpy oracle (nanorq_tpu_torch.host), the decoded bytes, the
    kernel launch counts of the main path (phases 3-4: 17 K1 launches per
    encode), no out-of-range gather index in it, and the encode/decode wall
    times; then one warm encode and one warm device decode under
    torch.profiler: the device time of each kernel and copy, summed over the
-   run, beside its wall time, and the copies by kind; the encode must show 17
+   run, beside its wall time, and the copies by kind (and the decode's
+   ingestion and host staging ms); the encode must show 17
    K1 kernels and no torch.cat copy, and neither run may copy from or into
    pageable memory;
 6. probe path: nanorq_tpu_torch.tools.gather_probe over both probe tables,
@@ -471,10 +477,27 @@ def _sync_all() -> None:
         torch.cuda.synchronize(i)
 
 
+def _stage_s() -> float:
+    from nanorq_tpu_torch.host import stats
+
+    return stats.snapshot()["timers"].get("host_stage", {}).get("total_s", 0.0)
+
+
+def _host_pinned() -> dict:
+    """The torch's own account of its pinned host blocks now (bytes), where
+    it has one."""
+    if not hasattr(torch.cuda, "host_memory_stats"):
+        return {}
+    return {k: v for k, v in torch.cuda.host_memory_stats().items() if "bytes" in k and k.endswith(".current")}
+
+
 def _decode_once(enc, data, reps, deliveries, dev, backend: str, around=contextlib.nullcontext, mesh=None):
-    """A fresh Decoder fed with `deliveries`, then repair_all(backend, mesh)
-    inside the context `around()`, timed (ingestion excluded): (restored
-    object, seconds, per-block patterns)."""
+    """A fresh Decoder fed with `deliveries` (its ingestion timed), then
+    repair_all(backend, mesh) inside the context `around()`, timed
+    (ingestion excluded): (restored object, seconds, {"preps": per-block
+    patterns, "ingest_ms", "stage_ms": the repair's host copy into pinned
+    staging, "ingest_bytes" / "pinned_bytes": its ingestion slabs, and what
+    they pin, `Decoder.ingest_bytes`})."""
     from nanorq_tpu_torch.codec.api import Decoder
     from nanorq_tpu_torch.host import MemoryIO, make_tag
 
@@ -482,39 +505,55 @@ def _decode_once(enc, data, reps, deliveries, dev, backend: str, around=contextl
     dec = Decoder(enc.oti_common(), enc.oti_scheme_specific(), device=dev)
     out = np.zeros(data.size, np.uint8)
     io = MemoryIO(out)
-    for sbn, (keep, rep_esis) in enumerate(deliveries):
-        dec.add_symbols(payloads[sbn * K + keep], [make_tag(sbn, int(e)) for e in keep], io)
-        dec.add_symbols(reps[sbn][: rep_esis.size], [make_tag(sbn, int(e)) for e in rep_esis], io)
-    preps = [dec._repair_prepare(sbn) for sbn in range(Z)]
+    sends = [(payloads[sbn * K + keep], [make_tag(sbn, int(e)) for e in keep], reps[sbn][: rep_esis.size],
+              [make_tag(sbn, int(e)) for e in rep_esis]) for sbn, (keep, rep_esis) in enumerate(deliveries)]
+    t0 = time.perf_counter()
+    for src, src_tags, rep, rep_tags in sends:
+        dec.add_symbols(src, src_tags, io)
+        dec.add_symbols(rep, rep_tags, io)
+    info = {"ingest_ms": 1e3 * (time.perf_counter() - t0)}
+    info["ingest_bytes"], info["pinned_bytes"] = dec.ingest_bytes()
+    info["preps"] = [dec._repair_prepare(sbn) for sbn in range(Z)]
     _sync_all()
+    stage0 = _stage_s()
     with around():
         t0 = time.perf_counter()
         if not dec.repair_all(io, backend=backend, mesh=mesh):
             raise AssertionError(f"repair_all({backend!r}) reported unrecovered blocks")
         secs = time.perf_counter() - t0
-    return out, secs, preps
+    info["stage_ms"] = 1e3 * (_stage_s() - stage0)
+    return out, secs, info
 
 
 def phase_decode(enc, data, reps, dev, deliveries):
     """repair_all(backend="device") at 6% loss + 5% overhead on every block,
     cold (every pattern solved fresh) then warm (plans cached).  The warm
-    run must stack its dense-W blocks: one K1 and one K2 launch per batch
-    of up to Decoder._BATCH_FLUSH blocks, not one pair per block.  Returns
-    the warm run's first K1 launch (`kernels.record_gathers`) too."""
+    run must stack its dense-W blocks: per batch of up to
+    Decoder._BATCH_FLUSH blocks one K2 launch and two K1 launches (the
+    placement of the repair rows into the stack, `parallel.mesh.assemble`,
+    then the stacked gather), not one set per block.  Prints each run's
+    ingestion ms, the repair's host staging ms and the bytes the
+    ingestion slabs hold and pin.  Returns the warm run's first two K1
+    launches (`kernels.record_gathers`) too."""
     from nanorq_tpu_torch.codec import cache as tcache
     from nanorq_tpu_torch.codec.api import Decoder
     from nanorq_tpu_torch.ops import kernels
 
     tcache.clear_decoder_cache()
-    out_cold, cold_s, preps = _decode_once(enc, data, reps, deliveries, dev, "device")
+    out_cold, cold_s, cold_info = _decode_once(enc, data, reps, deliveries, dev, "device")
+    preps = cold_info["preps"]
     before = dict(kernels.LAUNCHES)
-    with kernels.record_gathers(limit=1) as rec:  # holds no later batch's payload
-        out_warm, warm_s, _ = _decode_once(enc, data, reps, deliveries, dev, "device")
+    with kernels.record_gathers(limit=2) as rec:  # holds no later batch's payload
+        out_warm, warm_s, info = _decode_once(enc, data, reps, deliveries, dev, "device")
     warm = {n: kernels.LAUNCHES[n] - before[n] for n in before}
     batches = -(-Z // Decoder._BATCH_FLUSH)
     _say("decode", warm_launches=json.dumps(warm), batches=batches)
-    if warm["gf2_matmul"] != batches or warm["gather_xor"] != batches:
-        raise AssertionError(f"warm device decode ran {warm}, expected {batches} K1 and K2 launches")
+    for name, got in (("cold", cold_info), ("warm", info)):
+        _say("decode-ingest", run=name, ingest_ms=f"{got['ingest_ms']:.3f}", stage_ms=f"{got['stage_ms']:.3f}",
+             ingest_bytes=got["ingest_bytes"], pinned_bytes=got["pinned_bytes"],
+             host_pinned=json.dumps(_host_pinned()))
+    if warm["gf2_matmul"] != batches or warm["gather_xor"] != 2 * batches:
+        raise AssertionError(f"warm device decode ran {warm}, expected {batches} K2 and {2 * batches} K1 launches")
     kinds = {"gf2_w": 0, "gf256_w": 0, "structured": 0}
     for _gaps, isis, ov in preps:  # the plans decoder_plan cached for these patterns
         plan = tcache.decoder_plan(enc.P, isis, ov)
@@ -523,7 +562,7 @@ def phase_decode(enc, data, reps, dev, deliveries):
         else:
             kinds["structured"] += 1
     gaps = sum(p[0].size for p in preps)
-    return (out_cold, out_warm), (cold_s, warm_s), kinds, gaps, rec[0]
+    return (out_cold, out_warm), (cold_s, warm_s), kinds, gaps, rec
 
 
 def _mbps(nbytes: int, s: float) -> str:  # BASELINE.md's unit: 8 * bytes / (2**20 * seconds)
@@ -995,9 +1034,11 @@ def phase_profile(enc, batch, data, reps, dev, deliveries) -> dict:
                 tbatch.repair_symbols(batch, N_REPAIR, dev)  # fetched to the host
                 wall = time.perf_counter() - t0
         else:
-            out, wall, _ = _decode_once(enc, data, reps, deliveries, dev, "device", around=lambda: prof)
+            out, wall, info = _decode_once(enc, data, reps, deliveries, dev, "device", around=lambda: prof)
             if not np.array_equal(out, data):
                 raise AssertionError("the profiled decode did not restore the object")
+            _say("profile-ingest", run=name, ingest_ms=f"{info['ingest_ms']:.3f}",
+                 stage_ms=f"{info['stage_ms']:.3f}", pinned_bytes=info["pinned_bytes"])
         per, copies = {}, {}
         for e in prof.key_averages():
             ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
@@ -1101,7 +1142,8 @@ def main() -> None:
         raise AssertionError(f"phase 3's encodes ran {enc_launches['gather_xor']} K1 launches, "
                              f"expected {ENCODE_RUNS} x {gather_launches.ENCODE_LAUNCHES}")
     dec_launches = {n: main_launches[n] - enc_launches[n] for n in main_launches}
-    _k1_line("decode", gather_launches.measure(dec_gather, 20))
+    _k1_line("decode-place", gather_launches.measure(dec_gather[0], 20))
+    _k1_line("decode", gather_launches.measure(dec_gather[1], 20))
     del dec_gather
     _say("decode", loss=0.06, overhead=0.05, gaps=ngaps, cold_s=f"{dec_s[0]:.4f}",
          warm_s=f"{dec_s[1]:.4f}", plans=json.dumps(kinds), launches=json.dumps(dec_launches), mem=dec_mem)

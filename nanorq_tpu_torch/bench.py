@@ -48,6 +48,10 @@ Cells per K:
                  and "auto" again with the plans and memos kept from the
                  round before (a first untimed round fills them):
                  `e2e_<arm>_warm`, `e2e_auto_warm` and `e2e_auto_warm_ok`
+- e2e_ingest_ms  beside them: the ingestion the timed region leaves out,
+                 the least wall of a fresh decoder's add_symbols calls over
+                 the rounds (into its ingestion slabs, pinned on a card);
+                 `e2e_ingest_warm_ms` of the warm rounds
 - with `--mesh N` (off by default), two cells more per K, on N lanes dealt
   round-robin over the visible cards (`parallel.mesh`; on `--device cpu`, N
   CPU lanes): encode_e2e_mesh, encode_e2e through `generate(mesh=)` and
@@ -136,7 +140,8 @@ KEYS = ("encode", "encode_mbps", "encode_replay", "encode_e2e", "encode_e2e_mbps
         "encode_fresh", "decode0", "decode", "agg", "solve_ms", "fresh_ms", "dec_solve_ms", "dec_plan",
         "batch_MB", "decode_e2e", "decode_e2e_mbps", "agg_e2e", "e2e_auto_ok", "vs_ref", "fresh_vs_ref",
         *(k for arm in ARMS[1:] for k in (f"e2e_{arm}", f"e2e_{arm}_mbps")),
-        *(k for arm in ARMS for k in (f"e2e_{arm}_warm", f"e2e_{arm}_warm_mbps")), "e2e_auto_warm_ok")
+        *(k for arm in ARMS for k in (f"e2e_{arm}_warm", f"e2e_{arm}_warm_mbps")), "e2e_auto_warm_ok",
+        "e2e_ingest_ms", "e2e_ingest_warm_ms")
 # the program counters of a K's line, all present always (capture_ms null on the CPU)
 PROGRAM_KEYS = ("capture_ms", "replay_program_capture", "replay_program_replay", "replay_program_shared",
                 "replay_compile_new", "replay_compile_hit")
@@ -305,18 +310,25 @@ def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",), me
     before.  The output is compared with the object each time.  Arms are
     interleaved round-robin so that drift of the shared host's speed falls on
     every arm alike.  The arm "device_mesh" is "device" over `mesh`.
-    Returns {arm: seconds}, the best round of each."""
+    Returns ({arm: seconds}, the best round of each; the least ms of a fresh
+    decoder's ingestion over the rounds)."""
     data, enc, per_block = e2e_object(K, T, nblocks, dev)
     payloads = data.reshape(nblocks * K, T)
     out = np.zeros(data.size, np.uint8)  # one buffer, like the reference's run loop
+
+    sends = [(payloads[sbn * K + keep], [make_tag(sbn, int(e)) for e in keep], rep_pl,
+              [make_tag(sbn, int(e)) for e in rep_esis]) for sbn, (keep, rep_esis, rep_pl) in enumerate(per_block)]
+    ingest = [float("inf")]
 
     def fresh_decoder():
         dec = Decoder(enc.oti_common(), enc.oti_scheme_specific(), device=dev)
         out[:] = 0
         io = MemoryIO(out)
-        for sbn, (keep, rep_esis, rep_pl) in enumerate(per_block):
-            dec.add_symbols(payloads[sbn * K + keep], [make_tag(sbn, int(e)) for e in keep], io)
-            dec.add_symbols(rep_pl, [make_tag(sbn, int(e)) for e in rep_esis], io)
+        t0 = time.perf_counter()
+        for src, src_tags, rep_pl, rep_tags in sends:
+            dec.add_symbols(src, src_tags, io)
+            dec.add_symbols(rep_pl, rep_tags, io)
+        ingest[0] = min(ingest[0], 1e3 * (time.perf_counter() - t0))
         return dec, io
 
     def once(arm) -> float:
@@ -340,7 +352,7 @@ def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",), me
             best[arm] = min(best[arm], once(arm))
         if rnd and clock.expired():  # every arm has its two rounds at least
             break
-    return best
+    return best, ingest[0]
 
 
 def bench_K(K, T, blocks, iters, rng, dev, clock: Clock, dec_blocks=0, mesh=None) -> dict:
@@ -565,7 +577,7 @@ def run_grid(args, ks, results, dev, clock: Clock, fields: dict) -> None:
                 arms = ARMS if K <= RES_MAX_K else tuple(a for a in ARMS if not a.startswith("res"))
             if mesh is not None:
                 arms += (MESH_ARM,)
-            secs = bench_decode_e2e(K, args.T, nb, 3, dev, clock, arms=arms, mesh=mesh)
+            secs, r["e2e_ingest_ms"] = bench_decode_e2e(K, args.T, nb, 3, dev, clock, arms=arms, mesh=mesh)
             nbytes = K * args.T * nb
             if mesh is not None:
                 arms = arms[:-1]
@@ -577,7 +589,7 @@ def run_grid(args, ks, results, dev, clock: Clock, fields: dict) -> None:
             if len(arms) > 1:
                 r["e2e_auto_ok"] = _auto_ok(K, "cold", secs, nbytes)
             if args.arms and not clock.expired():  # the same object and patterns, warm
-                wsecs = bench_decode_e2e(K, args.T, nb, 3, dev, clock, arms=arms, warm=True)
+                wsecs, r["e2e_ingest_warm_ms"] = bench_decode_e2e(K, args.T, nb, 3, dev, clock, arms=arms, warm=True)
                 for arm, s in wsecs.items():
                     r[f"e2e_{arm}_warm"], r[f"e2e_{arm}_warm_mbps"] = _gbps(nbytes, s), _mbps(nbytes, s)
                 r["e2e_auto_warm_ok"] = _auto_ok(K, "warm", wsecs, nbytes)

@@ -114,7 +114,9 @@ class _Block:
 
     def __init__(self, K: int):
         self.K = K
-        self.D: np.ndarray | None = None  # payload matrix: an encoder's is `parallel.mesh.host_matrix`
+        # payload matrix: an encoder's is `parallel.mesh.host_matrix`, a
+        # decoder's a slot of its ingestion slab (`Decoder._source_rows`)
+        self.D: np.ndarray | None = None
         self.C = None  # device intermediate symbols [L, T]
         self.loaded = False
         self.got = np.zeros(K, bool)  # received source esis
@@ -421,6 +423,10 @@ class Decoder(_CodecBase):
         self.P = params_init(max(1, self.scheme.block_symbols(0)))
         self.max_esi = 2 * self.P.Kp
         self.device = resolve(device)
+        # ingestion slabs: slab i holds the rows of blocks [i*g, (i+1)*g)
+        self._slab_g = lanes.slab_blocks(self.num_blocks, self.block_symbols(0) * self.scheme.T)
+        self._slabs: dict[int, np.ndarray] = {}
+        self._slots_given: set[int] = set()
 
     def set_max_esi(self, max_esi: int) -> bool:
         if max_esi >= (1 << 24) or max_esi < self.P.Kp:
@@ -442,9 +448,7 @@ class Decoder(_CodecBase):
         if b.got[esi] if esi < b.K else esi in b.rep_seen:
             return SYM_DUP
         if esi < b.K:
-            if b.D is None:
-                b.D = np.zeros((self._d_rows(), self.scheme.T), np.uint8)
-            b.D[esi] = payload
+            self._source_rows(sbn, b)[esi] = payload
             self._write_symbol(io, sbn, esi, b.K, payload)
             b.got[esi] = True
             b.nsrc += 1
@@ -452,10 +456,36 @@ class Decoder(_CodecBase):
             b.add_repair(np.array([esi], np.int64), payload[None])
         return SYM_ADDED
 
-    def _d_rows(self) -> int:
-        # room for Kp LT rows + max overhead + S + H, padded generously;
-        # the repair-time D is rebuilt at the schedule's exact M_pad anyway
-        return self.P.Kp + 1
+    def _source_rows(self, sbn: int, b: _Block) -> np.ndarray:
+        """The block's ingestion matrix b.D [K, T]: received source symbols in
+        their rows, every other row zero (repair never writes into it).  It
+        is a slot of a host slab that `_slab_g` consecutive blocks share
+        (`parallel.mesh.host_zeros`: pinned on a card, so that the device arm
+        uploads its rows with no staging copy, and sized by
+        `parallel.mesh.slab_blocks` for the pinned allocator's power-of-two
+        blocks; plain numpy on the CPU).  A slot handed out before (its block
+        was reset or cleaned up) is zeroed again.  The native host arms read
+        its rows in place (`_row_ptrs`); the array keeps the slab alive."""
+        if b.D is None:
+            g = self._slab_g
+            slab = self._slabs.get(sbn // g)
+            if slab is None:
+                n = min(g, self.num_blocks - sbn // g * g)
+                slab = self._slabs[sbn // g] = lanes.host_zeros((n, self.block_symbols(0), self.scheme.T),
+                                                                 self.device)
+            elif sbn in self._slots_given:
+                slab[sbn % g] = 0
+            self._slots_given.add(sbn)
+            b.D = slab[sbn % g, : b.K]
+        return b.D
+
+    def ingest_bytes(self) -> tuple[int, int]:
+        """(bytes of the ingestion slabs, bytes they pin on a card: each
+        slab's `parallel.mesh.pinned_class`; on the CPU the first)."""
+        held = sum(s.nbytes for s in self._slabs.values())
+        if self.device.type != "cuda":
+            return held, held
+        return held, sum(lanes.pinned_class(s.nbytes) for s in self._slabs.values())
 
     def add_symbols(self, payloads: np.ndarray, tags, io: IOContext) -> list[int]:
         """Batched ingestion: payloads [n, T] with per-symbol tags.
@@ -522,9 +552,7 @@ class Decoder(_CodecBase):
                 b.got[pe] = True
                 b.nsrc += pe.size
                 if b.nsrc < b.K:  # incomplete: keep rows for a later repair
-                    if b.D is None:
-                        b.D = np.zeros((self._d_rows(), self.scheme.T), np.uint8)
-                    b.D[pe] = pl
+                    self._source_rows(int(sbn), b)[pe] = pl
                 # complete: repair is a no-op, the D rows would never be read
             rep = np.nonzero(ok & ~src)[0]
             if rep.size:
@@ -594,9 +622,7 @@ class Decoder(_CodecBase):
                 pe = esis[m]
                 b.got[pe] = True
                 b.nsrc = cnt
-                if b.D is None:
-                    b.D = np.zeros((self._d_rows(), T), np.uint8)
-                b.D[pe] = payloads[m]
+                self._source_rows(int(s), b)[pe] = payloads[m]
         return [SYM_ADDED] * int(sbns.size)
 
     def num_missing(self, sbn: int) -> int:
@@ -627,62 +653,50 @@ class Decoder(_CodecBase):
         isis[P.Kp :] = rep_isis[gaps.size :]
         return gaps, isis, overhead
 
-    def _repair_D(self, sbn: int, gaps: np.ndarray, overhead: int, M_pad: int, out=None) -> np.ndarray:
-        """The patched payload matrix D [M_pad, T]: received sources in their
-        rows, repair payloads in the gap and overhead slots (reference
-        fill_symbol_matrix_gaps, nanorq.c:549-565).  M_pad is canonical given
-        (K', overhead), so D can be staged before the pattern is solved.
-
-        `out`: a staging array [>= K' + overhead rows, T] to build D's
-        leading rows in, whatever it held (the rows past them are zero)."""
-        b = self._block(sbn)
-        P = self.P
-        if out is None:
-            D = np.zeros((M_pad, self.scheme.T), np.uint8)
-        else:
-            D = out
-            # with b.D, rows [0, K) are all written below: received, or a gap
-            D[b.K if b.D is not None else 0 :] = 0
-        if b.D is not None:
-            have = np.nonzero(b.got)[0]
-            D[have] = b.D[have]
-        ng = gaps.size
-        D[gaps] = b.rep_rows[:ng]
-        D[P.Kp : P.Kp + overhead] = b.rep_rows[ng : ng + overhead]
-        return D
+    def _repair_parts(self, items, rows: int) -> tuple[list, list, np.ndarray]:
+        """What the patched payload matrices of a run of blocks are built from
+        on the device (`parallel.mesh.assemble`): per block its ingestion
+        matrix b.D (None: no source symbol arrived), whose gap rows are zero,
+        and its repair payloads rep_rows[:gaps + overhead], and the rows
+        those go to: the gap rows, then [K', K' + overhead) (reference
+        fill_symbol_matrix_gaps, nanorq.c:549-565), block j's offset by j *
+        `rows`.  items: [(sbn, gaps, overhead)]."""
+        Kp = self.P.Kp
+        heads, extra, places = [], [], []
+        for j, (sbn, gaps, ov) in enumerate(items):
+            b = self._block(sbn)
+            heads.append(b.D)
+            extra.append(b.rep_rows[: gaps.size + ov])
+            places += [j * rows + gaps, np.arange(j * rows + Kp, j * rows + Kp + ov)]
+        return heads, extra, np.concatenate(places)
 
     def _repair_launch_batch(self, items, mesh):
         """Stacked launch for same-(kind, M_pad) WSchedule blocks over the
         lanes of `mesh` (the default path's is `parallel.mesh.local_mesh`):
         the stacked block axis is the split one.  items: [(sbn, gaps,
-        overhead, plan, D_host|None)] -> [(sbn, gaps, view)]; the views share
-        one result object, which downloads every lane's rows at once.
+        overhead, plan)] -> [(sbn, gaps, view)]; the views share one result
+        object, which downloads every lane's rows at once.
 
         Contiguous runs of blocks are dealt to the lanes
         (`parallel.mesh.deal`), the bits / rows / W stacks the same way; each
-        lane stages its run in pinned memory, uploads and launches on its
-        stream.  The JAX package pads the block count to a multiple of the
-        device count, because its `device_put` demands equal shards; here
-        runs may be uneven and a lane past the blocks is skipped.  A lane's
-        payload stack holds rows [0, live) and one zero row, live = K' + the
-        largest overhead, not M_pad rows: every row past `live` is zero, so a
-        gathered row at or past it reads the zero row and W's columns there
-        are cut -- the same product from half the upload."""
+        lane builds its run's payload stack (`parallel.mesh.shard_assemble`:
+        every block's ingestion matrix uploaded from pinned memory as it is,
+        its repair rows through one pinned staging copy and one K1 that
+        places them) and launches on its stream.  The JAX package pads the
+        block count to a multiple of the device count, because its
+        `device_put` demands equal shards; here runs may be uneven and a lane
+        past the blocks is skipped.  A lane's payload stack holds rows [0,
+        live) and one zero row, live = K' + the largest overhead, not M_pad
+        rows: every row past `live` is zero, so a gathered row at or past it
+        reads the zero row and W's columns there are cut -- the same product
+        from half the upload."""
         stats.count("repair_batch_launch")
         stats.count("repair_batch_blocks", len(items))
-        plans = [p for _, _, _, p, _ in items]
+        plans = [p for _, _, _, p in items]
         M_pad, T = plans[0].M_pad, self.scheme.T
-        live = min(self.P.Kp + max(ov for _, _, ov, _, _ in items), M_pad - 1)
-
-        def fill(host, lo, hi):
-            h = host.numpy()
-            for j, (sbn, gaps, ov, _p, Dh) in enumerate(items[lo:hi]):
-                if Dh is not None:
-                    h[j] = Dh[: live + 1]
-                else:
-                    self._repair_D(sbn, gaps, ov, M_pad, out=h[j])
-
-        D = lanes.shard_stack(len(items), mesh, (live + 1, T), fill)
+        live = min(self.P.Kp + max(ov for _, _, ov, _ in items), M_pad - 1)
+        D = lanes.shard_assemble(len(items), mesh, (live + 1, T),
+                                 lambda lo, hi: self._repair_parts([it[:3] for it in items[lo:hi]], live + 1))
         # every operand is per block: nothing cached per device to prepare
         if plans[0].Wbits is not None:
             bits, rows = wpath.w_stack_gf2(plans)
@@ -701,10 +715,11 @@ class Decoder(_CodecBase):
         structured replay (the program of the schedule's signature, which
         a cold pattern shares with the patterns of its signature met
         before, `ops/program.py`) plus an LT combine of the gap ISIs.  What
-        is cached per device is fetched first, on the current stream; then the block's
-        live rows (K' + overhead of M_pad) are staged in pinned memory,
-        uploaded and launched on the lane's stream.  The rows past them are
-        zeroed on the device: the structured replay reads all M_pad."""
+        is cached per device is fetched first, on the current stream; then
+        the block's patched matrix [M_pad, T] is built on the lane's stream
+        (`parallel.mesh.assemble`: the ingestion matrix uploaded from pinned
+        memory, the repair rows placed by one K1, every other row zero: the
+        structured replay reads all M_pad) and the recovery launched."""
         if isinstance(ds, _cache.WSchedule):
             ds.staged(lane.device)
             run = ds.apply
@@ -712,9 +727,8 @@ class Decoder(_CodecBase):
             arr = device_arrays(ds, lane.device)
             plan = lt_plan(gaps.astype(np.uint32), self.P, lane.device)
             run = lambda D: lt_combine(program.replay(arr, D), plan)  # noqa: E731
-        D_dev = lanes.stage(lane, (ds.M_pad, self.scheme.T),
-                            lambda host: self._repair_D(sbn, gaps, overhead, ds.M_pad, out=host.numpy()),
-                            rows=self.P.Kp + overhead)
+        D_dev = lanes.assemble(lane, (1, ds.M_pad, self.scheme.T),
+                               *self._repair_parts([(sbn, gaps, overhead)], ds.M_pad))[0]
         with lane.on():
             return _HostView(_HostResult(run(D_dev)[: gaps.size], lane))
 
@@ -742,7 +756,7 @@ class Decoder(_CodecBase):
 
     def _row_ptrs(self, sbn: int, gaps: np.ndarray, overhead: int, NB: int) -> np.ndarray:
         """Per-row payload addresses of the patched system's NB rows —
-        the zero-copy analog of _repair_D for the native host arm: sources
+        the zero-copy analog of `_repair_parts` for the native host arm: sources
         point into the ingestion matrix b.D, gap/overhead slots into the
         repair payloads, padding + constraint rows at a shared zero row.
         Every backing buffer is owned by self._blocks[sbn] (alive across
@@ -1062,7 +1076,7 @@ class Decoder(_CodecBase):
         def flush(key):
             items = pend.pop(key, [])
             if len(items) == 1 and mesh is None:
-                s, g, ov, ds, _ = items[0]
+                s, g, ov, ds = items[0]
                 launched.append((s, g, self._repair_launch(on.lanes[0], s, g, ov, ds)))
             elif items:
                 launched.extend(self._repair_launch_batch(items, on))
@@ -1077,7 +1091,7 @@ class Decoder(_CodecBase):
                     ok = False
                 elif isinstance(ds, _cache.WSchedule):
                     key = (ds.Wbits is not None, ds.M_pad)
-                    pend.setdefault(key, []).append((sbn, gaps, ov, ds, None))
+                    pend.setdefault(key, []).append((sbn, gaps, ov, ds))
                     if len(pend[key]) >= self._BATCH_FLUSH:
                         flush(key)
                 else:

@@ -33,6 +33,7 @@ from nanorq_tpu_torch.ops import kernels
 from nanorq_tpu_torch.ops import program
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
 from nanorq_tpu_torch.ops.replay import device_arrays
+from nanorq_tpu_torch.utils import stats
 
 
 class Lane:
@@ -141,15 +142,40 @@ def local_mesh(device) -> Mesh:
     return Mesh([Lane(resolve(device), own_stream=False)])
 
 
+def host_zeros(shape: tuple, device) -> np.ndarray:
+    """A zeroed uint8 host array bound for `device`: pinned on CUDA, so that
+    its contiguous rows cross to the card in one `non_blocking` copy with no
+    staging copy (the array keeps the pinned tensor alive); plain numpy on
+    the CPU."""
+    if resolve(device).type == "cuda":
+        return torch.zeros(shape, dtype=torch.uint8, pin_memory=True).numpy()
+    return np.zeros(shape, np.uint8)
+
+
 def host_matrix(live: int, rows: int, width: int, device) -> np.ndarray:
     """A zeroed host payload matrix bound for `device`, of which only the
-    leading `live` rows may be nonzero.  On CUDA it is [live, width] in pinned
-    memory, so that `upload` copies its rows straight to the card with no
-    staging copy (the array keeps the pinned tensor alive).  On the CPU it is
-    the plain numpy [rows, width] the device path reads in place."""
-    if resolve(device).type == "cuda":
-        return torch.zeros((live, width), dtype=torch.uint8, pin_memory=True).numpy()
-    return np.zeros((rows, width), np.uint8)
+    leading `live` rows may be nonzero: [live, width] pinned on CUDA, which
+    `upload` copies straight to the card; on the CPU the plain numpy [rows,
+    width] the device path reads in place (`host_zeros`)."""
+    return host_zeros((live if resolve(device).type == "cuda" else rows, width), device)
+
+
+def pinned_class(nbytes: int) -> int:
+    """The bytes PyTorch's caching host allocator pins for a request of
+    `nbytes`: it rounds every block up to a power of two."""
+    return 1 << max(0, nbytes - 1).bit_length()
+
+
+def slab_blocks(n: int, nbytes: int, most: int = 16) -> int:
+    """How many of n equal host blocks of `nbytes` to lay in one slab (up to
+    `most`) so that their slabs pin the fewest bytes (`pinned_class`), the
+    fewer blocks a slab on a tie.  Blocks of 1.28 MB pin 2 MiB one by one
+    (+64%); 13 of them fill 16 MiB (+0.8%)."""
+    def pinned(g: int) -> int:
+        q, r = divmod(n, g)
+        return q * pinned_class(g * nbytes) + (pinned_class(r * nbytes) if r else 0)
+
+    return min(range(1, max(1, min(n, most)) + 1), key=lambda g: (pinned(g), g))
 
 
 def pad_width(D: np.ndarray, n_dev: int) -> np.ndarray:
@@ -239,6 +265,51 @@ def upload(lane: Lane, D, rows: int, live: int) -> torch.Tensor:
         x[:live].copy_(head, non_blocking=True)
         if live < rows:
             x[live:].zero_()
+    return x
+
+
+def assemble(lane: Lane, shape: tuple, heads: list, extra: list, places: np.ndarray) -> torch.Tensor:
+    """A stack of n host blocks on the lane's device, `shape` = (n, rows, w):
+    item j's leading rows are the host matrix heads[j] ([h_j, w]; None: no
+    rows) and its other rows zero; then the rows of `extra` (host matrices
+    [m_k, w], taken in order as one [m, w]) are placed: row i is XORed into
+    row places[i] of the stack seen as [n * rows, w], by K1 with output rows
+    (`ops/kernels.gather_xor(rows=)`).  The callers' places are rows that
+    are zero, so each lands as it is; they are distinct and in range.
+
+    On a CUDA lane each head crosses in one `non_blocking` copy of its own,
+    with no staging copy where it is pinned (`host_zeros`; a pageable head,
+    of a decoder of the CPU on a mesh of cards, is copied as it is and the
+    host waits for that copy); `extra` and the two index rows cross through
+    one pinned staging buffer and one copy; the stack and that buffer are
+    allocated through `ops/program.empty`.  The host copy into the staging
+    buffer is timed (`utils.stats` timer "host_stage").  A CPU lane builds
+    the same stack with K1's plain version."""
+    n, rows, w = shape
+    m = sum(e.shape[0] for e in extra)
+    off = -(-m * w // 16) * 16  # the index rows start 16-byte aligned
+    buf = torch.empty(off + 8 * m, dtype=torch.uint8, pin_memory=lane.cuda)
+    with stats.timer("host_stage"):
+        if m:
+            np.concatenate(extra, out=buf[: m * w].numpy().reshape(m, w))
+        ix = buf[off:].view(torch.int32).view(2, m).numpy()
+        ix[0] = np.arange(m)
+        ix[1] = places
+    lo = min(0 if h is None else h.shape[0] for h in heads)
+    with lane.on():
+        x = program.empty(shape, torch.uint8, lane.device)
+        x[:, lo:].zero_()  # lo = 0 where a head is None
+        for j, h in enumerate(heads):
+            if h is not None:
+                x[j, : h.shape[0]].copy_(torch.as_tensor(h), non_blocking=True)
+        if m:
+            dev = buf
+            if lane.cuda:
+                dev = program.empty(buf.shape, torch.uint8, lane.device)
+                dev.copy_(buf, non_blocking=True)
+            ix_dev = dev[off:].view(torch.int32).view(2, m)
+            kernels.gather_xor(dev[: m * w].view(m, w), ix_dev[0].view(m, 1), out=x.view(n * rows, w),
+                               rows=ix_dev[1])
     return x
 
 
@@ -369,6 +440,18 @@ def shard_stack(n_items: int, mesh: Mesh, shape: tuple, fill, dtype=torch.uint8)
     ranges = deal(n_items, mesh.size)
     parts = [None if lo == hi else
              stage(lane, (hi - lo, *shape), lambda h, lo=lo, hi=hi: fill(h, lo, hi), dtype)
+             for lane, (lo, hi) in zip(mesh.lanes, ranges)]
+    return Sharded(mesh, parts, ranges, axis=0)
+
+
+def shard_assemble(n_items: int, mesh: Mesh, shape: tuple, part) -> Sharded:
+    """A stack [n_items, *shape] split over the mesh on its leading axis as
+    `shard_stack` splits it: lane i's run [lo, hi) is `assemble`d on its
+    stream from part(lo, hi) = (heads, extra, places), places counted in
+    that run's stack."""
+    check_mesh(mesh)
+    ranges = deal(n_items, mesh.size)
+    parts = [None if lo == hi else assemble(lane, (hi - lo, *shape), *part(lo, hi))
              for lane, (lo, hi) in zip(mesh.lanes, ranges)]
     return Sharded(mesh, parts, ranges, axis=0)
 

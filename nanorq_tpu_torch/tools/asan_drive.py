@@ -14,13 +14,13 @@ the host arms' reads and writes through `Decoder._row_ptrs` /
 `res_host` at K = 100 and 200, as `tools/asan_drive.py` does.  The payload
 math of the encode is numpy (`precode.solver.solve_encoder`,
 `precode.schedule.replay_numpy`, `rfc.tuples.lt_indices`), and the decoder
-is the port's, on the CPU.  Then one round trip whose ingestion matrices are
-pinned (`parallel.mesh.host_matrix` of a card, placed under each block
-before its symbols arrive): the native arm reads its rows out of pinned
-memory.  That case needs CUDA to initialize under the preloaded ASan,
-which a child process tries first (on an H100 host it needs
-`ASAN_OPTIONS=detect_leaks=0:protect_shadow_gap=0`); where it does not, the
-script says why and the CPU cases stand.  The JAX package's script must not
+is the port's, on the CPU.  Then one round trip through a decoder of the
+card, whose ingestion matrices are pinned slots of its slabs
+(`Decoder._source_rows`, `parallel.mesh.host_zeros`): the native arm reads
+its rows out of pinned memory.  That case needs CUDA to initialize under
+the preloaded ASan, which a child process tries first (on an H100 host it
+needs `ASAN_OPTIONS=detect_leaks=0:protect_shadow_gap=0`); where it does
+not, the script says why and the CPU cases stand.  The JAX package's script must not
 create an XLA client under the preload; this one imports torch, which
 survives it, and asserts that no JAX and no module of the JAX package is
 loaded.
@@ -58,12 +58,11 @@ def no_jax() -> bool:
 
 def drive(K: int, T: int, Z: int, loss: float, seed: int, backend: str, pinned: bool = False) -> dict:
     """One object of Z blocks of K symbols, encoded with numpy, decoded by
-    the port's Decoder (on the CPU; with `pinned`, each block's ingestion
-    matrix is a card's pinned `host_matrix`) through `backend`."""
+    the port's Decoder (on the CPU; with `pinned`, a decoder of the card,
+    whose ingestion matrices are pinned) through `backend`."""
     from nanorq_tpu_torch.codec.api import Decoder, Encoder
     from nanorq_tpu_torch.codec.oti import make_tag
     from nanorq_tpu_torch.io.ioctx import MemoryIO
-    from nanorq_tpu_torch.parallel.mesh import host_matrix
     from nanorq_tpu_torch.precode.schedule import replay_numpy
     from nanorq_tpu_torch.precode.solver import solve_encoder
     from nanorq_tpu_torch.rfc.params import params_init
@@ -73,7 +72,7 @@ def drive(K: int, T: int, Z: int, loss: float, seed: int, backend: str, pinned: 
     F = K * T * Z
     data = rng.integers(0, 256, F, dtype=np.uint8)
     enc = Encoder(F, T, Al=1, Z=Z, device="cpu")
-    dec = Decoder(enc.oti_common(), enc.oti_scheme_specific(), device="cpu")
+    dec = Decoder(enc.oti_common(), enc.oti_scheme_specific(), device="cuda" if pinned else "cpu")
     out = np.zeros(F, np.uint8)
     io = MemoryIO(out)
     for sbn in range(dec.num_blocks):
@@ -93,9 +92,6 @@ def drive(K: int, T: int, Z: int, loss: float, seed: int, backend: str, pinned: 
         for r in range(nrep):
             for c in idx[r][valid[r]]:
                 rep[r] ^= C[c]
-        if pinned:
-            rows = dec._d_rows()
-            dec._block(sbn).D = host_matrix(rows, rows, T, "cuda")
         keep = np.setdiff1d(np.arange(Kb), gaps)
         dec.add_symbols(src[keep], [make_tag(sbn, int(e)) for e in keep], io)
         dec.add_symbols(rep, [make_tag(sbn, int(e)) for e in range(Kb, Kb + nrep)], io)

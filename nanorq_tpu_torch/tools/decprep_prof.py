@@ -5,17 +5,23 @@
 
 At each K (default 1000 5000 10000 50000), 6% source loss and 5% overhead
 (the JAX tool's patterns: seed 99 warms the per-K' caches, seeds 7000 +
-s are timed), each pattern met once, as a receiver meets it.  The host
-prep, timed as `codec.cache.decoder_plan` runs it: `rows` (the patched
-rows), `solve` (the factorization) and `plan` (the dense-W rows, or the
-canonical device schedule of the structured path).  Where the plan is a
+s are timed), each pattern met once, as a receiver meets it: a fresh
+Decoder of one block of K symbols is fed the received source symbols and
+the repair symbols (random payloads: nothing is decoded) and its ingestion
+timed (`ingest_ms`, outside the host prep and the device steps; the
+decoder's ingestion slab is pinned on a card).  The host prep, timed as
+`codec.cache.decoder_plan` runs it: `rows` (the patched rows), `solve` (the
+factorization) and `plan` (the dense-W rows, or the canonical device
+schedule of the structured path).  Where the plan is a
 structured one (above `cache.WPATH_MAX_KP`, or at any K with
 `--structured`), the device steps of one block of T bytes a symbol, each
 by the host clock between two synchronisations (what the step adds to a
 block's wall when nothing overlaps it): `arrays` (the schedule's packed
 arrays built and uploaded, `ops/replay.device_arrays`), `lt_plan` (the gap
-ISIs' LT plan), `stage` (the block's live rows staged in pinned memory and
-uploaded, `parallel/mesh.stage`), `copy_in` (the packed arrays into the
+ISIs' LT plan), `stage` (the block's patched matrix built on the card as
+the decoder builds it, `Decoder._repair_parts` + `parallel/mesh.assemble`:
+its ingestion matrix uploaded from pinned memory, its repair rows through
+one pinned staging copy, placed by one K1), `copy_in` (the packed arrays into the
 slot of the signature's program; null where no program is cached and the
 replay runs eagerly), `replay` (`ops/program.replay` after the copy-in:
 its prologue, one graph launch and its epilogue; or the eager replay),
@@ -27,8 +33,8 @@ steady state.
 
 One JSON line per K: per column its least ms over the patterns (`ms`) and
 every pattern's (`ms_all`), the replay's `route` per pattern ("program" or
-"eager"), `host_ms` and `device_ms` (sums of the least), and the card's
-name and power limit.  On `--device cpu` the host clock and the eager
+"eager"), `host_ms` and `device_ms` (sums of the least), `ingest_ms` (the
+least) and `ingest_ms_all`, and the card's name and power limit.  On `--device cpu` the host clock and the eager
 replay stand in: a rehearsal at a tiny size, no device number.
 """
 
@@ -39,6 +45,9 @@ import numpy as np
 import torch
 
 from nanorq_tpu_torch.codec import cache as cc
+from nanorq_tpu_torch.codec.api import Decoder, Encoder
+from nanorq_tpu_torch.codec.oti import make_tag
+from nanorq_tpu_torch.io.ioctx import MemoryIO
 from nanorq_tpu_torch.ops import program, wpath
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
 from nanorq_tpu_torch.ops.replay import device_arrays
@@ -81,7 +90,10 @@ def prof_k(K: int, n: int, T: int, structured: bool, dev, fields) -> dict:
     P = params_init(K)
     cuda = dev.type == "cuda"
     lane = lanes.local_mesh(dev).lanes[0]
-    data = np.random.default_rng(K).integers(0, 256, (P.Kp + max(1, int(0.05 * K)) + 1, T), dtype=np.uint8)
+    data = np.random.default_rng(K).integers(0, 256, (K + K // 5 + max(1, int(0.05 * K)) + 1, T), dtype=np.uint8)
+    enc = Encoder(K * T, T, Al=min(8, T & -T), Z=1, device="cpu")  # one block of K symbols: the OTI
+    if enc.block_symbols(0) != K:
+        raise ValueError(f"K={K} T={T}: not one block of K symbols")
 
     def wall(fn):
         if cuda:
@@ -92,8 +104,22 @@ def prof_k(K: int, n: int, T: int, structured: bool, dev, fields) -> dict:
             torch.cuda.synchronize(dev)
         return out, 1e3 * (time.perf_counter() - t0)
 
+    def ingest(gaps: np.ndarray, ov: int) -> tuple:
+        """A fresh decoder fed the pattern's symbols: (decoder, ms)."""
+        dec = Decoder(enc.oti_common(), enc.oti_scheme_specific(), device=dev)
+        keep = np.setdiff1d(np.arange(K), gaps)
+        rep = np.arange(K, K + gaps.size + ov)
+        io = MemoryIO(np.zeros(K * T, np.uint8))
+        src, reps = data[keep], data[K : K + rep.size]
+        src_tags, rep_tags = [make_tag(0, int(e)) for e in keep], [make_tag(0, int(e)) for e in rep]
+        t0 = time.perf_counter()
+        dec.add_symbols(src, src_tags, io)
+        dec.add_symbols(reps, rep_tags, io)
+        return dec, 1e3 * (time.perf_counter() - t0)
+
     def block(seed: int) -> tuple:
         gaps, isis, ov = pattern(P, K, seed)
+        dec, ingest_ms = ingest(gaps, ov)
         ms = {}
         rows, ms["rows"] = wall(lambda: cc._patched_rows(P, isis, ov))
         st, ms["solve"] = wall(lambda: solve_state(P, rows, ov))
@@ -101,18 +127,17 @@ def prof_k(K: int, n: int, T: int, structured: bool, dev, fields) -> dict:
             raise AssertionError(f"K={K}: pattern {seed} did not solve")
         ds, ms["plan"] = wall(lambda: _plan(P, st, gaps, structured))
         if not hasattr(ds, "tri"):  # a dense-W plan: no structured device steps
-            return ms, None
+            return ms, None, ingest_ms
         arr, ms["arrays"] = wall(lambda: device_arrays(ds, dev))
         plan, ms["lt_plan"] = wall(lambda: lt_plan(gaps.astype(np.uint32), P, dev))
-        live = P.Kp + ov
-        D, ms["stage"] = wall(lambda: lanes.stage(lane, (ds.M_pad, T), lambda h: h.numpy().__setitem__(
-            slice(None), data[: h.shape[0]]), rows=live))
+        D, ms["stage"] = wall(lambda: lanes.assemble(lane, (1, ds.M_pad, T),
+                                                     *dec._repair_parts([(0, gaps, ov)], ds.M_pad))[0])
         prog = program.lookup(arr, T, torch.cuda.current_stream(dev).cuda_stream) if cuda else None
         ms["copy_in"] = wall(lambda: program._copy_in(prog, arr))[1] if prog is not None else None
         C, ms["replay"] = wall(lambda: program.replay(arr, D))
         S, ms["lt"] = wall(lambda: lt_combine(C, plan)[: gaps.size])
         _, ms["fetch"] = wall(lambda: lanes.fetch([(lane, S)]))
-        return ms, "program" if prog is not None else "eager"
+        return ms, "program" if prog is not None else "eager", ingest_ms
 
     block(99)  # the per-K' caches (rows base, tables), the native library
     if structured or P.Kp > cc.WPATH_MAX_KP:
@@ -120,11 +145,12 @@ def prof_k(K: int, n: int, T: int, structured: bool, dev, fields) -> dict:
             block(31000 + s)
     runs = [block(7000 + s) for s in range(n)]
     cols = HOST + (DEVICE if runs[0][1] is not None else ())
-    ms_all = {c: [r[c] for r, _ in runs] for c in cols}
+    ms_all = {c: [r[c] for r, _, _ in runs] for c in cols}
     least = {c: min((x for x in v if x is not None), default=None) for c, v in ms_all.items()}
     line = {"tool": "decprep_prof", "K": K, "Kp": P.Kp, "T": T, "patterns": n,
             "plan": "structured" if runs[0][1] is not None else "dense-W",
-            "route": [route for _, route in runs], "ms": least, "ms_all": ms_all,
+            "route": [route for _, route, _ in runs], "ms": least, "ms_all": ms_all,
+            "ingest_ms": min(i for _, _, i in runs), "ingest_ms_all": [i for _, _, i in runs],
             "host_ms": sum(least[c] for c in HOST),
             "device_ms": sum(least[c] or 0.0 for c in DEVICE) if runs[0][1] is not None else None,
             "timing": "perf_counter"}

@@ -2,7 +2,8 @@
 device arm, step by step (counterpart of `tools/hostarm_prof.py`,
 `probe_hostprof.py`, `probe_smallk.py` and `probe_hostarm.py`).
 
-    python -m nanorq_tpu_torch.tools.hostarm_prof [K ...] [--blocks N] [--iters N] [--T T] [--device cuda]
+    python -m nanorq_tpu_torch.tools.hostarm_prof [K ...] [--blocks N] [--iters N] [--T T] [--arms ARM ...]
+        [--stage place|contiguous|gather|remap] [--device cuda]
 
 At each K (default 100 500 1000 5000 10000), an object of `blocks` blocks
 of K symbols of T bytes (default 1280); the block count is the JAX tools'
@@ -11,6 +12,14 @@ loses 6% of its source symbols and receives 5% of K repair symbols more
 than it lost (the JAX tools' patterns, seed 7).  Every arm decodes it cold
 (the decoder's plan cache and memos cleared) and warm (kept from the cold
 runs), `iters` fresh decoders each; the fastest run's split is printed.
+Every run also reports `ingest_ms`: the wall of the fresh decoder's
+`add_symbols` calls (outside the decode, as the bench keeps it), where the
+decoder's ingestion slabs are allocated (`Decoder._source_rows`: pinned on a
+card); each K's line has `ingest_first_ms`, the ingestion of a first decoder
+before any run of that K (its pinned slabs new to PyTorch's host cache, where
+no earlier K left blocks of their size), and `ingest_bytes` / `pinned_bytes`
+(`Decoder.ingest_bytes`) with `host_memory_stats` (the torch's own account,
+where it has one).
 
 - `host` and `res_host` (the native CPU arms): `prep_ms`, the Python prep
   (`Decoder._repair_prepare` over the blocks), against `batch_ms`, the
@@ -26,8 +35,9 @@ runs), `iters` fresh decoders each; the fastest run's split is printed.
   synchronisations, summed over the stacked batches as
   `Decoder._repair_launch_batch` cuts them: `prep_ms`, `plan_ms`
   (`codec.cache.decoder_plan`: the solve and the W rows cold, a cache hit
-  warm), `stage_ms` (`_repair_D` into pinned staging), `upload_ms` (the
-  staged rows to the card), `wstack_ms` (the W stack built and uploaded),
+  warm), `stage_ms` (the host copy into pinned staging that `--stage`
+  leaves) and `upload_ms` (the rest of building the payload stack on the
+  card), `wstack_ms` (the W stack built and uploaded),
   `apply_ms` (K1 + K2, `ops/wpath.w_apply_gf2_batch`, for GF(2) plans; K3,
   `w_apply_gf256_batch`, for GF(256) ones -- `apply_ms_by_kind`) and
   `fetch_ms` (the gap rows into pinned memory); then one more run of the
@@ -36,6 +46,27 @@ runs), `iters` fresh decoders each; the fastest run's split is printed.
   time, and on the CPU).  A K whose plans are structured (above
   `cache.WPATH_MAX_KP`) prints the device line with `"plan": "structured"`
   and no steps.
+
+`--stage` picks how the device arm's payload stack is built:
+- `place` (default; the decoder's own, `Decoder._repair_parts` +
+  `parallel.mesh.shard_assemble`): every block's ingestion matrix uploaded
+  from pinned memory as it is, the repair rows through one pinned staging
+  copy, placed into the gap and overhead rows by one K1; `stage_ms` is that
+  staging copy (timer "host_stage");
+- `contiguous`: the patched matrix of every block built on the host in
+  pinned staging from a contiguous copy of its ingestion rows, the gap and
+  overhead rows overwritten after, then uploaded whole;
+- `gather`: the same with the received rows copied by a fancy-index gather
+  (`D[have] = b.D[have]`), as the decoder did before it built the stack on
+  the card;
+- `remap`: no placement: the repair rows uploaded after the blocks' rows,
+  and the W plans remapped to read them -- a GF(2) plan's gathered rows
+  point at them in one flat source, a GF(256) plan's gap and overhead
+  columns move to them, appended to each block.
+`contiguous` and `gather` touch only b.D, `got` and `rep_rows`, so this file
+runs them on an older checkout of the package too, whose decoder staged the
+whole matrix on the host: run it as a script with that checkout on
+PYTHONPATH (`python -m` would take the working directory's package).
 
 One JSON line per K and arm, {"cold": {...}, "warm": {...}}, each with
 `total_ms` and `mbps` (8 * bytes / (2**20 * s)), and the card's name and
@@ -60,7 +91,8 @@ from nanorq_tpu_torch.codec.api import Decoder, Encoder
 from nanorq_tpu_torch.codec.oti import make_tag
 from nanorq_tpu_torch.io.ioctx import MemoryIO
 from nanorq_tpu_torch.native import native_available
-from nanorq_tpu_torch.ops import wpath
+from nanorq_tpu_torch.ops import kernels, program, wpath
+from nanorq_tpu_torch.ops.replay import take_rows
 from nanorq_tpu_torch.parallel import mesh as lanes
 from nanorq_tpu_torch.tools import _sweep
 from nanorq_tpu_torch.utils import stats
@@ -68,10 +100,12 @@ from nanorq_tpu_torch.utils import stats
 BLOCKS = {100: 128, 500: 64, 1000: 64, 5000: 16, 10000: 8, 50000: 4}  # tools/hostarm_prof.py's NB
 ARMS = ("host", "res_host", "device")
 STAGES = ("solve", "s1", "s2", "s3", "s4", "s5")
-HOST_COLUMNS = ("total_ms", "prep_ms", "batch_ms", "native_ms", "py_build_ms", "finish_ms", "mbps")
+STAGINGS = ("place", "contiguous", "gather", "remap")
+HOST_COLUMNS = ("total_ms", "ingest_ms", "prep_ms", "batch_ms", "native_ms", "py_build_ms", "finish_ms", "mbps")
 DEVICE_STEPS = ("prep_ms", "plan_ms", "stage_ms", "upload_ms", "wstack_ms", "apply_ms", "fetch_ms")
 COLUMNS = {"host": HOST_COLUMNS + ("native_split",), "res_host": HOST_COLUMNS,
-           "device": ("total_ms",) + DEVICE_STEPS + ("apply_ms_by_kind", "batches", "busy_share", "mbps")}
+           "device": ("total_ms", "ingest_ms") + DEVICE_STEPS + ("apply_ms_by_kind", "batches", "busy_share",
+                                                                "mbps")}
 _NATIVE_TIMER = {"host": "host_repair", "res_host": "host_residual"}
 _SPLIT = re.compile(r"nrq_host_repair2? \(thread 0\): solve ([\d.]+) s1 ([\d.]+) s2 ([\d.]+) s3 ([\d.]+) "
                     r"s4 ([\d.]+) s5 ([\d.]+) ms")
@@ -101,17 +135,23 @@ class _Object:
             gaps = np.nonzero(rng.random(K) < 0.06)[0]
             rep = np.arange(K, K + gaps.size + max(1, int(0.05 * K)))
             self.blocks.append((gaps, rep, self.enc.encode_batch(sbn, rep, src)))
+        self.sends = [(np.setdiff1d(np.arange(K), gaps), rep, pl) for gaps, rep, pl in self.blocks]
 
     def fresh(self):
+        """(decoder fed every block's symbols, its output, its io, the
+        ms its add_symbols calls took)."""
         dec = Decoder(self.enc.oti_common(), self.enc.oti_scheme_specific(), device=self.dev)
         out = np.zeros(self.F, np.uint8)
         io = MemoryIO(out)
         rows = self.data.reshape(self.nb * self.K, self.T)
-        for sbn, (gaps, rep, pl) in enumerate(self.blocks):
-            keep = np.setdiff1d(np.arange(self.K), gaps)
-            dec.add_symbols(rows[sbn * self.K + keep], [make_tag(sbn, int(e)) for e in keep], io)
-            dec.add_symbols(pl, [make_tag(sbn, int(e)) for e in rep], io)
-        return dec, out, io
+        sends = [(sbn, rows[sbn * self.K + keep], [make_tag(sbn, int(e)) for e in keep], pl,
+                  [make_tag(sbn, int(e)) for e in rep])
+                 for sbn, (keep, rep, pl) in enumerate(self.sends)]
+        t = time.perf_counter()
+        for _, src, src_tags, pl, rep_tags in sends:
+            dec.add_symbols(src, src_tags, io)
+            dec.add_symbols(pl, rep_tags, io)
+        return dec, out, io, 1e3 * (time.perf_counter() - t)
 
 
 def _timer_s(name: str) -> float:
@@ -154,7 +194,7 @@ def _prepare(dec: Decoder, nb: int) -> list:
 
 def _host_run(obj: _Object, arm: str) -> dict:
     """One decode through a native arm, split (see the module's doc)."""
-    dec, out, io = obj.fresh()
+    dec, out, io, ingest = obj.fresh()
     t0 = time.perf_counter()
     work = _prepare(dec, obj.nb)
     t1 = time.perf_counter()
@@ -173,7 +213,7 @@ def _host_run(obj: _Object, arm: str) -> dict:
     if not (ok and np.array_equal(out, obj.data)):
         raise AssertionError(f"K={obj.K}: the {arm} arm did not restore the object")
     native = 1e3 * (_timer_s(_NATIVE_TIMER[arm]) - native0)
-    run = {"total_ms": 1e3 * (t3 - t0), "prep_ms": 1e3 * (t1 - t0), "batch_ms": 1e3 * (t2 - t1),
+    run = {"total_ms": 1e3 * (t3 - t0), "ingest_ms": ingest, "prep_ms": 1e3 * (t1 - t0), "batch_ms": 1e3 * (t2 - t1),
            "native_ms": native, "py_build_ms": 1e3 * (t2 - t1) - native, "finish_ms": 1e3 * (t3 - t2)}
     if arm == "host":
         m = _SPLIT.search(printed[0])
@@ -184,9 +224,82 @@ def _host_run(obj: _Object, arm: str) -> dict:
     return run
 
 
-def _device_run(obj: _Object) -> dict:
-    """One decode through the dense-W device arm, step by step (see the
-    module's doc); {"plan": "structured"} where a plan is not dense-W."""
+def _patched_host(dec, sbn: int, gaps: np.ndarray, ov: int, out: np.ndarray, contiguous: bool) -> None:
+    """Block sbn's patched payload matrix in `out` ([>= K' + ov rows, T],
+    whatever it held; the rows past K' + ov zeroed): its ingestion matrix's
+    received rows (a contiguous copy of its K rows, whose gap rows are zero,
+    or a fancy-index gather of the received ones), then its repair payloads
+    in the gap and overhead rows (reference fill_symbol_matrix_gaps,
+    nanorq.c:549-565)."""
+    b = dec._block(sbn)
+    Kp, ng = dec.P.Kp, gaps.size
+    out[b.K if b.D is not None else 0 :] = 0
+    if b.D is not None:
+        if contiguous:
+            out[: b.K] = b.D[: b.K]
+        else:
+            have = np.nonzero(b.got)[0]
+            out[have] = b.D[have]
+    out[gaps] = b.rep_rows[:ng]
+    out[Kp : Kp + ov] = b.rep_rows[ng : ng + ov]
+
+
+def _remap_stack(dec, items, R: int, lane, filled: list) -> torch.Tensor:
+    """`--stage remap`'s payload stack [n, R + tail, T]: block j's ingestion
+    matrix in rows [0, K), zeros to R, then its repair payloads from row R
+    (tail = the most of them), uploaded through one pinned staging copy and
+    moved into place on the card; nothing is placed into the gap rows."""
+    n, T = len(items), dec.scheme.T
+    nrs = [gaps.size + ov for _, gaps, ov, _ in items]
+    tail = max(nrs)
+    t = time.perf_counter()
+    stage = torch.zeros((n, tail, T), dtype=torch.uint8, pin_memory=lane.cuda)
+    h = stage.numpy()
+    for j, (sbn, _, _, _) in enumerate(items):
+        h[j, : nrs[j]] = dec._block(sbn).rep_rows[: nrs[j]]
+    filled.append(1e3 * (time.perf_counter() - t))
+    heads = [dec._block(sbn).D for sbn, _, _, _ in items]
+    lo = min(0 if d is None else d.shape[0] for d in heads)
+    with lane.on():
+        x = program.empty((n, R + tail, T), torch.uint8, lane.device)
+        x[:, lo:R].zero_()
+        for j, d in enumerate(heads):
+            if d is not None:
+                x[j, : d.shape[0]].copy_(torch.as_tensor(d), non_blocking=True)
+        if lane.cuda:
+            tmp = program.empty(stage.shape, torch.uint8, lane.device)
+            tmp.copy_(stage, non_blocking=True)
+            stage = tmp
+        x[:, R:].copy_(stage)
+    return x
+
+
+def _remap_plans(dec, items, plans, R: int, L: int, live: int):
+    """The W plans of a `_remap_stack` of row pitch L: GF(2) -> (bits, rows
+    [n * kq, 1] into the stack seen as [n * L, T], the gap and overhead rows
+    sent to the repair rows after row R); GF(256) -> W [n, m, L], the gap and
+    overhead columns copied to the repair rows' columns."""
+    Kp, n = dec.P.Kp, len(items)
+    cols = [np.concatenate([gaps, np.arange(Kp, Kp + ov)]) for _, gaps, ov, _ in items]
+    if plans[0].Wbits is not None:
+        bits, rows = wpath.w_stack_gf2(plans)
+        lut = np.arange(n)[:, None] * L + np.arange(R)[None]
+        for j, c in enumerate(cols):
+            lut[j, c] = j * L + R + np.arange(c.size)
+        flat = np.take_along_axis(lut, np.minimum(rows, live), axis=1).astype(np.int32)
+        return bits, flat.reshape(-1, 1)
+    W = wpath.w_stack_gf256(plans)[:, :, :R]
+    W2 = np.zeros((n, W.shape[1], L), np.uint8)
+    W2[:, :, :R] = W
+    for j, c in enumerate(cols):
+        W2[j, :, R : R + c.size] = W[j][:, c]
+    return W2, None
+
+
+def _device_run(obj: _Object, stage: str = "place") -> dict:
+    """One decode through the dense-W device arm, step by step, its payload
+    stack built as `stage` says (see the module's doc); {"plan":
+    "structured"} where a plan is not dense-W."""
     dev, cuda = obj.dev, obj.dev.type == "cuda"
     on = lanes.local_mesh(dev)
     lane = on.lanes[0]
@@ -203,7 +316,7 @@ def _device_run(obj: _Object) -> dict:
         ms[name] += 1e3 * (time.perf_counter() - t)
         return res
 
-    dec, out, io = obj.fresh()
+    dec, out, io, ingest = obj.fresh()
     P, T = dec.P, obj.T
     t0 = time.perf_counter()
     work = step("prep_ms", lambda: _prepare(dec, obj.nb))
@@ -220,31 +333,49 @@ def _device_run(obj: _Object) -> dict:
     for items in batches:  # Decoder._repair_launch_batch, one step at a time
         M_pad = items[0][3].M_pad
         live = min(P.Kp + max(ov for _, _, ov, _ in items), M_pad - 1)
-        filled = []
-
-        def fill(host, lo, hi, items=items, M_pad=M_pad, filled=filled):
-            t = time.perf_counter()
-            h = host.numpy()
-            for j, (sbn, gaps, ov, _) in enumerate(items[lo:hi]):
-                dec._repair_D(sbn, gaps, ov, M_pad, out=h[j])
-            filled.append(1e3 * (time.perf_counter() - t))
-
-        D = step("upload_ms", lambda: lanes.shard_stack(len(items), on, (live + 1, T), fill))
-        ms["stage_ms"] += sum(filled)
-        ms["upload_ms"] -= sum(filled)
         plans_b = [p for _, _, _, p in items]
         gf2 = plans_b[0].Wbits is not None
-        if gf2:
+        filled = []
+        if stage == "place":
+            s0 = _timer_s("host_stage")
+            D = step("upload_ms", lambda: lanes.shard_assemble(
+                len(items), on, (live + 1, T), lambda lo, hi: dec._repair_parts([it[:3] for it in items[lo:hi]],
+                                                                                live + 1)))
+            filled.append(1e3 * (_timer_s("host_stage") - s0))
+        elif stage == "remap":
+            x = step("upload_ms", lambda: _remap_stack(dec, items, live + 1, lane, filled))
+        else:
+            def fill(host, lo, hi, items=items, filled=filled):
+                t = time.perf_counter()
+                h = host.numpy()
+                for j, (sbn, gaps, ov, _) in enumerate(items[lo:hi]):
+                    _patched_host(dec, sbn, gaps, ov, h[j], stage == "contiguous")
+                filled.append(1e3 * (time.perf_counter() - t))
+
+            D = step("upload_ms", lambda: lanes.shard_stack(len(items), on, (live + 1, T), fill))
+        ms["stage_ms"] += sum(filled)
+        ms["upload_ms"] -= sum(filled)
+        t = ms["apply_ms"]
+        if stage == "remap":
+            def wstack():
+                A, rows = _remap_plans(dec, items, plans_b, live + 1, x.shape[1], live)
+                return lanes.shard_blocks(A, on).parts[0], None if rows is None else lanes.shard_blocks(rows, on)
+
+            A, rows = step("wstack_ms", wstack)
+            if gf2:
+                res = step("apply_ms", lambda: kernels.gf2_matmul(A, take_rows(
+                    x.view(-1, T), rows.parts[0]).view(len(items), -1, T)))
+            else:
+                res = step("apply_ms", lambda: kernels.gf256_matmul(A, x))
+        elif gf2:
             def wstack():
                 bits, rows = wpath.w_stack_gf2(plans_b)
                 return lanes.shard_blocks(bits, on), lanes.shard_blocks(np.minimum(rows, live)[..., None], on)
 
             bits, rows = step("wstack_ms", wstack)
-            t = ms["apply_ms"]
             res = step("apply_ms", lambda: wpath.w_apply_gf2_batch(bits.parts[0], rows.parts[0], D.parts[0]))
         else:
             W = step("wstack_ms", lambda: lanes.shard_blocks(wpath.w_stack_gf256(plans_b)[:, :, : live + 1], on))
-            t = ms["apply_ms"]
             res = step("apply_ms", lambda: wpath.w_apply_gf256_batch(W.parts[0], D.parts[0]))
         kind = "gf2" if gf2 else "gf256"
         by_kind[kind] = by_kind.get(kind, 0.0) + ms["apply_ms"] - t
@@ -253,11 +384,11 @@ def _device_run(obj: _Object) -> dict:
             dec._repair_finish(io, sbn, gaps, rows_out[j])
     ms["total_ms"] = 1e3 * (time.perf_counter() - t0)
     if not np.array_equal(out, obj.data):
-        raise AssertionError(f"K={obj.K}: the device arm did not restore the object")
-    return {**ms, "apply_ms_by_kind": by_kind, "batches": len(batches)}
+        raise AssertionError(f"K={obj.K}: the device arm ({stage}) did not restore the object")
+    return {**ms, "ingest_ms": ingest, "apply_ms_by_kind": by_kind, "batches": len(batches)}
 
 
-def _busy_share(obj: _Object, cold: bool) -> float | None:
+def _busy_share(obj: _Object, cold: bool, stage: str) -> float | None:
     """The card's kernel and copy time over the `total_ms` of one more
     device-arm run under torch.profiler, device activity only as chip_smoke's
     phase 5 takes it (None on the CPU, or where it shows none).  The
@@ -270,12 +401,12 @@ def _busy_share(obj: _Object, cold: bool) -> float | None:
         cc.clear_decoder_cache()
     torch.cuda.synchronize(obj.dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run = _device_run(obj)
+        run = _device_run(obj, stage)
     device_ms = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()) / 1e3
     return device_ms / run["total_ms"] if device_ms > 0 else None
 
 
-def prof_arm(obj: _Object, arm: str, iters: int) -> dict:
+def prof_arm(obj: _Object, arm: str, iters: int, stage: str = "place") -> dict:
     """{"cold": ..., "warm": ...}: per state the fastest of `iters` runs."""
     got = {}
     for state in ("cold", "warm"):
@@ -283,27 +414,45 @@ def prof_arm(obj: _Object, arm: str, iters: int) -> dict:
         for _ in range(iters):
             if state == "cold":
                 cc.clear_decoder_cache()
-            runs.append(_host_run(obj, arm) if arm != "device" else _device_run(obj))
+            runs.append(_host_run(obj, arm) if arm != "device" else _device_run(obj, stage))
         if "total_ms" not in runs[0]:
             got[state] = runs[0]
             continue
         best = min(runs, key=lambda r: r["total_ms"])
         best["mbps"] = 8 * obj.F / (2**20 * best["total_ms"] * 1e-3)
         if arm == "device":
-            best["busy_share"] = _busy_share(obj, state == "cold")
+            best["busy_share"] = _busy_share(obj, state == "cold", stage)
         got[state] = best
     return got
 
 
-def prof_k(K: int, nb: int, T: int, iters: int, dev, fields: dict) -> list:
+def _ingest_first(obj: _Object) -> dict:
+    """A first decoder of the object, fed and dropped before any run: its
+    ingestion's ms, the bytes of its ingestion matrices and what they pin
+    (`Decoder.ingest_bytes`, where the package has it), and the torch's host
+    allocator account after it (`torch.cuda.host_memory_stats`, on a card)."""
+    dec, _, _, ms = obj.fresh()
+    held = getattr(dec, "ingest_bytes", None)
+    line = {"ingest_first_ms": ms, "ingest_bytes": None, "pinned_bytes": None, "host_memory_stats": None}
+    if held is not None:
+        line["ingest_bytes"], line["pinned_bytes"] = held()
+    if obj.dev.type == "cuda" and hasattr(torch.cuda, "host_memory_stats"):
+        st = torch.cuda.host_memory_stats()
+        line["host_memory_stats"] = {k: v for k, v in st.items() if k.endswith(".current") or "time" in k}
+    return line
+
+
+def prof_k(K: int, nb: int, T: int, iters: int, dev, fields: dict, arms=ARMS, stage: str = "place") -> list:
     if not native_available():
         raise RuntimeError("hostarm_prof needs the port's native library (nanorq_tpu_torch/native): the host arms "
                            "and the dense-W plans are built by it, and it is unavailable")
     obj = _Object(K, T, nb, dev)
+    first = _ingest_first(obj)
     lines = []
-    for arm in ARMS:
+    for arm in arms:
         line = {"tool": "hostarm_prof", "K": K, "Kp": obj.enc.P.Kp, "T": T, "blocks": nb, "bytes": obj.F,
-                "arm": arm, "loss": 0.06, "overhead": 0.05, "iters": iters, **prof_arm(obj, arm, iters)}
+                "arm": arm, "loss": 0.06, "overhead": 0.05, "iters": iters, **first,
+                **({"stage": stage} if arm == "device" else {}), **prof_arm(obj, arm, iters, stage)}
         if arm == "device":
             line["plan"] = line["cold"].pop("plan", "dense-W")
             line["warm"].pop("plan", None)
@@ -317,13 +466,15 @@ def main(argv=None) -> list:
     ap.add_argument("--blocks", type=int, default=None, help="default: the JAX tools' table, else blocks_for(K, T)")
     ap.add_argument("--iters", type=int, default=3, help="fresh decoders per arm and state; the fastest is printed")
     ap.add_argument("--T", type=int, default=1280)
+    ap.add_argument("--arms", nargs="+", choices=ARMS, default=list(ARMS))
+    ap.add_argument("--stage", choices=STAGINGS, default="place", help="how the device arm builds its payload stack")
     _sweep.add_device(ap)
     args = ap.parse_args(argv)
     dev, fields = _sweep.device(args)
     fields = {**fields, "timing": "perf_counter"}
     return [line for K in args.ks or [100, 500, 1000, 5000, 10000]
             for line in prof_k(K, args.blocks or BLOCKS.get(K) or blocks_for(K, args.T), args.T, args.iters, dev,
-                               fields)]
+                               fields, tuple(args.arms), args.stage)]
 
 
 if __name__ == "__main__":

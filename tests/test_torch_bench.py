@@ -199,6 +199,7 @@ def test_decode_e2e_object_is_what_the_jax_package_makes_and_decodes():
     assert lost and jdec.repair_all(jio) and np.array_equal(out, jdata)
     import torch
 
-    secs = bench.bench_decode_e2e(K, T, nb, 2, torch.device("cpu"), bench.Clock(torch.device("cpu"), 60.0),
-                                  arms=bench.ARMS)  # asserts byte equality per arm and round
-    assert sorted(secs) == sorted(bench.ARMS) and all(0 < s < 60 for s in secs.values())
+    secs, ingest_ms = bench.bench_decode_e2e(K, T, nb, 2, torch.device("cpu"),
+                                             bench.Clock(torch.device("cpu"), 60.0),
+                                             arms=bench.ARMS)  # asserts byte equality per arm and round
+    assert sorted(secs) == sorted(bench.ARMS) and all(0 < s < 60 for s in secs.values()) and ingest_ms > 0

@@ -1,7 +1,8 @@
 """The port's ASan round trips (`nanorq_tpu_torch/tools/asan_drive.py`) without
 the sanitizer, and its host-arm profiler (`tools/hostarm_prof.py`) at a
-tiny size on the CPU: every column of every arm, a K outside the JAX
-tool's block table, and the errors where the native library is missing."""
+tiny size on the CPU: every column of every arm, every way of building the
+device arm's payload stack, a K outside the JAX tool's block table, and the
+errors where the native library is missing."""
 
 import contextlib
 import io
@@ -46,6 +47,7 @@ def test_hostarm_prof_gives_every_column_of_every_arm():
             run = ln[state]
             assert set(run) == set(hostarm_prof.COLUMNS[ln["arm"]]), (ln["arm"], state)
             assert all(run[c] is not None for c in run if c != "busy_share") and run["total_ms"] > 0
+            assert run["ingest_ms"] > 0
             if ln["arm"] == "device":
                 assert run["busy_share"] is None  # no card: no device time
                 assert run["apply_ms"] == pytest.approx(sum(run["apply_ms_by_kind"].values()))
@@ -55,6 +57,27 @@ def test_hostarm_prof_gives_every_column_of_every_arm():
             if ln["arm"] == "host":
                 assert set(run["native_split"]) == set(hostarm_prof.STAGES)
     assert {ln["plan"] for ln in lines if ln["arm"] == "device"} == {"dense-W"}
+
+
+@needs_native
+@pytest.mark.parametrize("stage", hostarm_prof.STAGINGS)
+def test_hostarm_prof_stages_restore_the_object(stage):
+    """Each way of building the device arm's payload stack restores the
+    object (the tool raises where it does not) through a GF(256) plan (K =
+    30) and a GF(2) one (K = 700), with every column; each line has the
+    first decoder's ingestion and the bytes its slabs hold."""
+    lines = _run(["30", "700", "--blocks", "2", "--arms", "device", "--stage", stage, *TINY])
+    kinds = set()
+    for ln in lines:
+        assert ln["arm"] == "device" and ln["stage"] == stage and ln["plan"] == "dense-W"
+        assert ln["ingest_first_ms"] > 0 and ln["host_memory_stats"] is None
+        assert ln["ingest_bytes"] == ln["pinned_bytes"] == 2 * ln["K"] * 16  # both blocks' rows
+        for state in ("cold", "warm"):
+            run = ln[state]
+            assert set(run) == set(hostarm_prof.COLUMNS["device"]) and run["ingest_ms"] > 0
+            assert run["stage_ms"] >= 0 and run["upload_ms"] > 0
+            kinds |= set(run["apply_ms_by_kind"])
+    assert kinds == {"gf2", "gf256"}
 
 
 @needs_native

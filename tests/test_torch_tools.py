@@ -171,6 +171,7 @@ def test_decprep_prof_structured_columns():
     assert all(len(v) == 2 for v in ln["ms_all"].values())
     assert all(ln["ms"][c] > 0 for c in decprep_prof.HOST + decprep_prof.DEVICE if c != "copy_in")
     assert ln["host_ms"] == pytest.approx(sum(ln["ms"][c] for c in decprep_prof.HOST))
+    assert ln["ingest_ms"] == min(ln["ingest_ms_all"]) > 0 and len(ln["ingest_ms_all"]) == 2
 
 
 def test_decprep_prof_follows_the_decoders_path_selection():
