@@ -426,7 +426,6 @@ class Decoder(_CodecBase):
         # ingestion slabs: slab i holds the rows of blocks [i*g, (i+1)*g)
         self._slab_g = lanes.slab_blocks(self.num_blocks, self.block_symbols(0) * self.scheme.T)
         self._slabs: dict[int, np.ndarray] = {}
-        self._slots_given: set[int] = set()
 
     def set_max_esi(self, max_esi: int) -> bool:
         if max_esi >= (1 << 24) or max_esi < self.P.Kp:
@@ -463,9 +462,10 @@ class Decoder(_CodecBase):
         (`parallel.mesh.host_zeros`: pinned on a card, so that the device arm
         uploads its rows with no staging copy, and sized by
         `parallel.mesh.slab_blocks` for the pinned allocator's power-of-two
-        blocks; plain numpy on the CPU).  A slot handed out before (its block
-        was reset or cleaned up) is zeroed again.  The native host arms read
-        its rows in place (`_row_ptrs`); the array keeps the slab alive."""
+        blocks; plain numpy on the CPU).  A slot given back (`reset`) is
+        zeroed, or its slab dropped once no block holds a slot of it.  The
+        native host arms read its rows in place (`_row_ptrs`); the array
+        keeps the slab alive."""
         if b.D is None:
             g = self._slab_g
             slab = self._slabs.get(sbn // g)
@@ -473,11 +473,30 @@ class Decoder(_CodecBase):
                 n = min(g, self.num_blocks - sbn // g * g)
                 slab = self._slabs[sbn // g] = lanes.host_zeros((n, self.block_symbols(0), self.scheme.T),
                                                                  self.device)
-            elif sbn in self._slots_given:
-                slab[sbn % g] = 0
-            self._slots_given.add(sbn)
             b.D = slab[sbn % g, : b.K]
         return b.D
+
+    def reset(self, sbn: int) -> None:
+        """Forget block sbn's symbols.  Its slot is zeroed for the block's
+        next symbols, unless no block of its slab holds a slot any more:
+        then the slab goes back to the host allocator (PyTorch's pinned
+        cache, on a card)."""
+        b = self._blocks.get(sbn)
+        D = None if b is None else b.D
+        super().reset(sbn)
+        if D is None:
+            return
+        g = self._slab_g
+        i = sbn // g
+        blocks = (self._blocks.get(s) for s in range(i * g, min(i * g + g, self.num_blocks)))
+        if all(b is None or b.D is None for b in blocks):
+            del self._slabs[i]
+        else:
+            D[:] = 0
+
+    def cleanup(self, sbn: int) -> None:
+        self.reset(sbn)
+        super().cleanup(sbn)
 
     def ingest_bytes(self) -> tuple[int, int]:
         """(bytes of the ingestion slabs, bytes they pin on a card: each

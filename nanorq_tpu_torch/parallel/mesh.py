@@ -166,16 +166,19 @@ def pinned_class(nbytes: int) -> int:
     return 1 << max(0, nbytes - 1).bit_length()
 
 
-def slab_blocks(n: int, nbytes: int, most: int = 16) -> int:
+SLAB_MOST = 16  # blocks in one ingestion slab, at most
+
+
+def slab_blocks(n: int, nbytes: int) -> int:
     """How many of n equal host blocks of `nbytes` to lay in one slab (up to
-    `most`) so that their slabs pin the fewest bytes (`pinned_class`), the
+    `SLAB_MOST`) so that their slabs pin the fewest bytes (`pinned_class`), the
     fewer blocks a slab on a tie.  Blocks of 1.28 MB pin 2 MiB one by one
     (+64%); 13 of them fill 16 MiB (+0.8%)."""
     def pinned(g: int) -> int:
         q, r = divmod(n, g)
         return q * pinned_class(g * nbytes) + (pinned_class(r * nbytes) if r else 0)
 
-    return min(range(1, max(1, min(n, most)) + 1), key=lambda g: (pinned(g), g))
+    return min(range(1, max(1, min(n, SLAB_MOST)) + 1), key=lambda g: (pinned(g), g))
 
 
 def pad_width(D: np.ndarray, n_dev: int) -> np.ndarray:

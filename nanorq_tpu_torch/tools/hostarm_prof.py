@@ -3,7 +3,7 @@ device arm, step by step (counterpart of `tools/hostarm_prof.py`,
 `probe_hostprof.py`, `probe_smallk.py` and `probe_hostarm.py`).
 
     python -m nanorq_tpu_torch.tools.hostarm_prof [K ...] [--blocks N] [--iters N] [--T T] [--arms ARM ...]
-        [--stage place|contiguous|gather|remap] [--device cuda]
+        [--device cuda]
 
 At each K (default 100 500 1000 5000 10000), an object of `blocks` blocks
 of K symbols of T bytes (default 1280); the block count is the JAX tools'
@@ -15,11 +15,17 @@ runs), `iters` fresh decoders each; the fastest run's split is printed.
 Every run also reports `ingest_ms`: the wall of the fresh decoder's
 `add_symbols` calls (outside the decode, as the bench keeps it), where the
 decoder's ingestion slabs are allocated (`Decoder._source_rows`: pinned on a
-card); each K's line has `ingest_first_ms`, the ingestion of a first decoder
-before any run of that K (its pinned slabs new to PyTorch's host cache, where
-no earlier K left blocks of their size), and `ingest_bytes` / `pinned_bytes`
-(`Decoder.ingest_bytes`) with `host_memory_stats` (the torch's own account,
-where it has one).
+card).  Before any run, each K's first decoder is timed as a one-shot user
+meets it: `ingest_first_ms` (its pinned slabs new to PyTorch's host cache,
+where no earlier K left blocks of their size) and `decode_first_ms`
+(`repair_all`, the default arm, cold); its line has `ingest_bytes` /
+`pinned_bytes` (`Decoder.ingest_bytes`) and, on a card, `host_memory_kept`:
+what the byte counts of `torch.cuda.host_memory_stats` gained over the
+first decoder's life, read after it died (`allocated_bytes`: what the host
+cache still pins).  The first decoder touches only the package's public calls, so
+this file also times an older checkout's (run it as a script with that
+checkout on PYTHONPATH, `--arms host`; `python -m` would take the working
+directory's package).
 
 - `host` and `res_host` (the native CPU arms): `prep_ms`, the Python prep
   (`Decoder._repair_prepare` over the blocks), against `batch_ms`, the
@@ -35,9 +41,10 @@ where it has one).
   synchronisations, summed over the stacked batches as
   `Decoder._repair_launch_batch` cuts them: `prep_ms`, `plan_ms`
   (`codec.cache.decoder_plan`: the solve and the W rows cold, a cache hit
-  warm), `stage_ms` (the host copy into pinned staging that `--stage`
-  leaves) and `upload_ms` (the rest of building the payload stack on the
-  card), `wstack_ms` (the W stack built and uploaded),
+  warm), `stage_ms` (the repair rows' copy into pinned staging, timer
+  "host_stage") and `upload_ms` (the rest of building the payload stack on
+  the card, `parallel.mesh.shard_assemble`), `wstack_ms` (the W stack built
+  and uploaded),
   `apply_ms` (K1 + K2, `ops/wpath.w_apply_gf2_batch`, for GF(2) plans; K3,
   `w_apply_gf256_batch`, for GF(256) ones -- `apply_ms_by_kind`) and
   `fetch_ms` (the gap rows into pinned memory); then one more run of the
@@ -46,27 +53,6 @@ where it has one).
   time, and on the CPU).  A K whose plans are structured (above
   `cache.WPATH_MAX_KP`) prints the device line with `"plan": "structured"`
   and no steps.
-
-`--stage` picks how the device arm's payload stack is built:
-- `place` (default; the decoder's own, `Decoder._repair_parts` +
-  `parallel.mesh.shard_assemble`): every block's ingestion matrix uploaded
-  from pinned memory as it is, the repair rows through one pinned staging
-  copy, placed into the gap and overhead rows by one K1; `stage_ms` is that
-  staging copy (timer "host_stage");
-- `contiguous`: the patched matrix of every block built on the host in
-  pinned staging from a contiguous copy of its ingestion rows, the gap and
-  overhead rows overwritten after, then uploaded whole;
-- `gather`: the same with the received rows copied by a fancy-index gather
-  (`D[have] = b.D[have]`), as the decoder did before it built the stack on
-  the card;
-- `remap`: no placement: the repair rows uploaded after the blocks' rows,
-  and the W plans remapped to read them -- a GF(2) plan's gathered rows
-  point at them in one flat source, a GF(256) plan's gap and overhead
-  columns move to them, appended to each block.
-`contiguous` and `gather` touch only b.D, `got` and `rep_rows`, so this file
-runs them on an older checkout of the package too, whose decoder staged the
-whole matrix on the host: run it as a script with that checkout on
-PYTHONPATH (`python -m` would take the working directory's package).
 
 One JSON line per K and arm, {"cold": {...}, "warm": {...}}, each with
 `total_ms` and `mbps` (8 * bytes / (2**20 * s)), and the card's name and
@@ -78,6 +64,7 @@ it the tool raises.
 
 import argparse
 import contextlib
+import gc
 import os
 import re
 import tempfile
@@ -91,8 +78,7 @@ from nanorq_tpu_torch.codec.api import Decoder, Encoder
 from nanorq_tpu_torch.codec.oti import make_tag
 from nanorq_tpu_torch.io.ioctx import MemoryIO
 from nanorq_tpu_torch.native import native_available
-from nanorq_tpu_torch.ops import kernels, program, wpath
-from nanorq_tpu_torch.ops.replay import take_rows
+from nanorq_tpu_torch.ops import wpath
 from nanorq_tpu_torch.parallel import mesh as lanes
 from nanorq_tpu_torch.tools import _sweep
 from nanorq_tpu_torch.utils import stats
@@ -100,7 +86,6 @@ from nanorq_tpu_torch.utils import stats
 BLOCKS = {100: 128, 500: 64, 1000: 64, 5000: 16, 10000: 8, 50000: 4}  # tools/hostarm_prof.py's NB
 ARMS = ("host", "res_host", "device")
 STAGES = ("solve", "s1", "s2", "s3", "s4", "s5")
-STAGINGS = ("place", "contiguous", "gather", "remap")
 HOST_COLUMNS = ("total_ms", "ingest_ms", "prep_ms", "batch_ms", "native_ms", "py_build_ms", "finish_ms", "mbps")
 DEVICE_STEPS = ("prep_ms", "plan_ms", "stage_ms", "upload_ms", "wstack_ms", "apply_ms", "fetch_ms")
 COLUMNS = {"host": HOST_COLUMNS + ("native_split",), "res_host": HOST_COLUMNS,
@@ -224,82 +209,9 @@ def _host_run(obj: _Object, arm: str) -> dict:
     return run
 
 
-def _patched_host(dec, sbn: int, gaps: np.ndarray, ov: int, out: np.ndarray, contiguous: bool) -> None:
-    """Block sbn's patched payload matrix in `out` ([>= K' + ov rows, T],
-    whatever it held; the rows past K' + ov zeroed): its ingestion matrix's
-    received rows (a contiguous copy of its K rows, whose gap rows are zero,
-    or a fancy-index gather of the received ones), then its repair payloads
-    in the gap and overhead rows (reference fill_symbol_matrix_gaps,
-    nanorq.c:549-565)."""
-    b = dec._block(sbn)
-    Kp, ng = dec.P.Kp, gaps.size
-    out[b.K if b.D is not None else 0 :] = 0
-    if b.D is not None:
-        if contiguous:
-            out[: b.K] = b.D[: b.K]
-        else:
-            have = np.nonzero(b.got)[0]
-            out[have] = b.D[have]
-    out[gaps] = b.rep_rows[:ng]
-    out[Kp : Kp + ov] = b.rep_rows[ng : ng + ov]
-
-
-def _remap_stack(dec, items, R: int, lane, filled: list) -> torch.Tensor:
-    """`--stage remap`'s payload stack [n, R + tail, T]: block j's ingestion
-    matrix in rows [0, K), zeros to R, then its repair payloads from row R
-    (tail = the most of them), uploaded through one pinned staging copy and
-    moved into place on the card; nothing is placed into the gap rows."""
-    n, T = len(items), dec.scheme.T
-    nrs = [gaps.size + ov for _, gaps, ov, _ in items]
-    tail = max(nrs)
-    t = time.perf_counter()
-    stage = torch.zeros((n, tail, T), dtype=torch.uint8, pin_memory=lane.cuda)
-    h = stage.numpy()
-    for j, (sbn, _, _, _) in enumerate(items):
-        h[j, : nrs[j]] = dec._block(sbn).rep_rows[: nrs[j]]
-    filled.append(1e3 * (time.perf_counter() - t))
-    heads = [dec._block(sbn).D for sbn, _, _, _ in items]
-    lo = min(0 if d is None else d.shape[0] for d in heads)
-    with lane.on():
-        x = program.empty((n, R + tail, T), torch.uint8, lane.device)
-        x[:, lo:R].zero_()
-        for j, d in enumerate(heads):
-            if d is not None:
-                x[j, : d.shape[0]].copy_(torch.as_tensor(d), non_blocking=True)
-        if lane.cuda:
-            tmp = program.empty(stage.shape, torch.uint8, lane.device)
-            tmp.copy_(stage, non_blocking=True)
-            stage = tmp
-        x[:, R:].copy_(stage)
-    return x
-
-
-def _remap_plans(dec, items, plans, R: int, L: int, live: int):
-    """The W plans of a `_remap_stack` of row pitch L: GF(2) -> (bits, rows
-    [n * kq, 1] into the stack seen as [n * L, T], the gap and overhead rows
-    sent to the repair rows after row R); GF(256) -> W [n, m, L], the gap and
-    overhead columns copied to the repair rows' columns."""
-    Kp, n = dec.P.Kp, len(items)
-    cols = [np.concatenate([gaps, np.arange(Kp, Kp + ov)]) for _, gaps, ov, _ in items]
-    if plans[0].Wbits is not None:
-        bits, rows = wpath.w_stack_gf2(plans)
-        lut = np.arange(n)[:, None] * L + np.arange(R)[None]
-        for j, c in enumerate(cols):
-            lut[j, c] = j * L + R + np.arange(c.size)
-        flat = np.take_along_axis(lut, np.minimum(rows, live), axis=1).astype(np.int32)
-        return bits, flat.reshape(-1, 1)
-    W = wpath.w_stack_gf256(plans)[:, :, :R]
-    W2 = np.zeros((n, W.shape[1], L), np.uint8)
-    W2[:, :, :R] = W
-    for j, c in enumerate(cols):
-        W2[j, :, R : R + c.size] = W[j][:, c]
-    return W2, None
-
-
-def _device_run(obj: _Object, stage: str = "place") -> dict:
-    """One decode through the dense-W device arm, step by step, its payload
-    stack built as `stage` says (see the module's doc); {"plan":
-    "structured"} where a plan is not dense-W."""
+def _device_run(obj: _Object) -> dict:
+    """One decode through the dense-W device arm, step by step (see the
+    module's doc); {"plan": "structured"} where a plan is not dense-W."""
     dev, cuda = obj.dev, obj.dev.type == "cuda"
     on = lanes.local_mesh(dev)
     lane = on.lanes[0]
@@ -335,39 +247,14 @@ def _device_run(obj: _Object, stage: str = "place") -> dict:
         live = min(P.Kp + max(ov for _, _, ov, _ in items), M_pad - 1)
         plans_b = [p for _, _, _, p in items]
         gf2 = plans_b[0].Wbits is not None
-        filled = []
-        if stage == "place":
-            s0 = _timer_s("host_stage")
-            D = step("upload_ms", lambda: lanes.shard_assemble(
-                len(items), on, (live + 1, T), lambda lo, hi: dec._repair_parts([it[:3] for it in items[lo:hi]],
-                                                                                live + 1)))
-            filled.append(1e3 * (_timer_s("host_stage") - s0))
-        elif stage == "remap":
-            x = step("upload_ms", lambda: _remap_stack(dec, items, live + 1, lane, filled))
-        else:
-            def fill(host, lo, hi, items=items, filled=filled):
-                t = time.perf_counter()
-                h = host.numpy()
-                for j, (sbn, gaps, ov, _) in enumerate(items[lo:hi]):
-                    _patched_host(dec, sbn, gaps, ov, h[j], stage == "contiguous")
-                filled.append(1e3 * (time.perf_counter() - t))
-
-            D = step("upload_ms", lambda: lanes.shard_stack(len(items), on, (live + 1, T), fill))
-        ms["stage_ms"] += sum(filled)
-        ms["upload_ms"] -= sum(filled)
+        s0 = _timer_s("host_stage")
+        D = step("upload_ms", lambda: lanes.shard_assemble(
+            len(items), on, (live + 1, T), lambda lo, hi: dec._repair_parts([it[:3] for it in items[lo:hi]], live + 1)))
+        staged = 1e3 * (_timer_s("host_stage") - s0)
+        ms["stage_ms"] += staged
+        ms["upload_ms"] -= staged
         t = ms["apply_ms"]
-        if stage == "remap":
-            def wstack():
-                A, rows = _remap_plans(dec, items, plans_b, live + 1, x.shape[1], live)
-                return lanes.shard_blocks(A, on).parts[0], None if rows is None else lanes.shard_blocks(rows, on)
-
-            A, rows = step("wstack_ms", wstack)
-            if gf2:
-                res = step("apply_ms", lambda: kernels.gf2_matmul(A, take_rows(
-                    x.view(-1, T), rows.parts[0]).view(len(items), -1, T)))
-            else:
-                res = step("apply_ms", lambda: kernels.gf256_matmul(A, x))
-        elif gf2:
+        if gf2:
             def wstack():
                 bits, rows = wpath.w_stack_gf2(plans_b)
                 return lanes.shard_blocks(bits, on), lanes.shard_blocks(np.minimum(rows, live)[..., None], on)
@@ -384,11 +271,11 @@ def _device_run(obj: _Object, stage: str = "place") -> dict:
             dec._repair_finish(io, sbn, gaps, rows_out[j])
     ms["total_ms"] = 1e3 * (time.perf_counter() - t0)
     if not np.array_equal(out, obj.data):
-        raise AssertionError(f"K={obj.K}: the device arm ({stage}) did not restore the object")
+        raise AssertionError(f"K={obj.K}: the device arm did not restore the object")
     return {**ms, "ingest_ms": ingest, "apply_ms_by_kind": by_kind, "batches": len(batches)}
 
 
-def _busy_share(obj: _Object, cold: bool, stage: str) -> float | None:
+def _busy_share(obj: _Object, cold: bool) -> float | None:
     """The card's kernel and copy time over the `total_ms` of one more
     device-arm run under torch.profiler, device activity only as chip_smoke's
     phase 5 takes it (None on the CPU, or where it shows none).  The
@@ -401,12 +288,12 @@ def _busy_share(obj: _Object, cold: bool, stage: str) -> float | None:
         cc.clear_decoder_cache()
     torch.cuda.synchronize(obj.dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run = _device_run(obj, stage)
+        run = _device_run(obj)
     device_ms = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()) / 1e3
     return device_ms / run["total_ms"] if device_ms > 0 else None
 
 
-def prof_arm(obj: _Object, arm: str, iters: int, stage: str = "place") -> dict:
+def prof_arm(obj: _Object, arm: str, iters: int) -> dict:
     """{"cold": ..., "warm": ...}: per state the fastest of `iters` runs."""
     got = {}
     for state in ("cold", "warm"):
@@ -414,45 +301,60 @@ def prof_arm(obj: _Object, arm: str, iters: int, stage: str = "place") -> dict:
         for _ in range(iters):
             if state == "cold":
                 cc.clear_decoder_cache()
-            runs.append(_host_run(obj, arm) if arm != "device" else _device_run(obj, stage))
+            runs.append(_host_run(obj, arm) if arm != "device" else _device_run(obj))
         if "total_ms" not in runs[0]:
             got[state] = runs[0]
             continue
         best = min(runs, key=lambda r: r["total_ms"])
         best["mbps"] = 8 * obj.F / (2**20 * best["total_ms"] * 1e-3)
         if arm == "device":
-            best["busy_share"] = _busy_share(obj, state == "cold", stage)
+            best["busy_share"] = _busy_share(obj, state == "cold")
         got[state] = best
     return got
 
 
-def _ingest_first(obj: _Object) -> dict:
-    """A first decoder of the object, fed and dropped before any run: its
-    ingestion's ms, the bytes of its ingestion matrices and what they pin
-    (`Decoder.ingest_bytes`, where the package has it), and the torch's host
-    allocator account after it (`torch.cuda.host_memory_stats`, on a card)."""
-    dec, _, _, ms = obj.fresh()
-    held = getattr(dec, "ingest_bytes", None)
-    line = {"ingest_first_ms": ms, "ingest_bytes": None, "pinned_bytes": None, "host_memory_stats": None}
-    if held is not None:
-        line["ingest_bytes"], line["pinned_bytes"] = held()
-    if obj.dev.type == "cuda" and hasattr(torch.cuda, "host_memory_stats"):
-        st = torch.cuda.host_memory_stats()
-        line["host_memory_stats"] = {k: v for k, v in st.items() if k.endswith(".current") or "time" in k}
+def _host_bytes() -> dict:
+    """The torch's host allocator account, its byte counts now (empty where
+    this torch has none)."""
+    if not hasattr(torch.cuda, "host_memory_stats"):
+        return {}
+    return {k: v for k, v in torch.cuda.host_memory_stats().items() if "bytes" in k and k.endswith(".current")}
+
+
+def _first(obj: _Object) -> dict:
+    """A first decoder of the object before any run, as a one-shot user
+    meets it: its ingestion's and its cold default decode's ms, the bytes of
+    its ingestion matrices and what they pin (`Decoder.ingest_bytes`, where
+    the package has it), and on a card what the host allocator's byte
+    counts gained over its life, read after it died."""
+    cuda = obj.dev.type == "cuda"
+    before = _host_bytes() if cuda else {}
+    cc.clear_decoder_cache()
+    dec, out, io, ingest = obj.fresh()
+    t = time.perf_counter()
+    if not (dec.repair_all(io) and np.array_equal(out, obj.data)):
+        raise AssertionError(f"K={obj.K}: the first decoder did not restore the object")
+    line = {"ingest_first_ms": ingest, "decode_first_ms": 1e3 * (time.perf_counter() - t),
+            "ingest_bytes": None, "pinned_bytes": None, "host_memory_kept": None}
+    if hasattr(dec, "ingest_bytes"):
+        line["ingest_bytes"], line["pinned_bytes"] = dec.ingest_bytes()
+    del dec, io
+    gc.collect()
+    if cuda and before:
+        line["host_memory_kept"] = {k: v - before.get(k, 0) for k, v in _host_bytes().items()}
     return line
 
 
-def prof_k(K: int, nb: int, T: int, iters: int, dev, fields: dict, arms=ARMS, stage: str = "place") -> list:
+def prof_k(K: int, nb: int, T: int, iters: int, dev, fields: dict, arms=ARMS) -> list:
     if not native_available():
         raise RuntimeError("hostarm_prof needs the port's native library (nanorq_tpu_torch/native): the host arms "
                            "and the dense-W plans are built by it, and it is unavailable")
     obj = _Object(K, T, nb, dev)
-    first = _ingest_first(obj)
+    first = _first(obj)
     lines = []
     for arm in arms:
         line = {"tool": "hostarm_prof", "K": K, "Kp": obj.enc.P.Kp, "T": T, "blocks": nb, "bytes": obj.F,
-                "arm": arm, "loss": 0.06, "overhead": 0.05, "iters": iters, **first,
-                **({"stage": stage} if arm == "device" else {}), **prof_arm(obj, arm, iters, stage)}
+                "arm": arm, "loss": 0.06, "overhead": 0.05, "iters": iters, **first, **prof_arm(obj, arm, iters)}
         if arm == "device":
             line["plan"] = line["cold"].pop("plan", "dense-W")
             line["warm"].pop("plan", None)
@@ -467,14 +369,13 @@ def main(argv=None) -> list:
     ap.add_argument("--iters", type=int, default=3, help="fresh decoders per arm and state; the fastest is printed")
     ap.add_argument("--T", type=int, default=1280)
     ap.add_argument("--arms", nargs="+", choices=ARMS, default=list(ARMS))
-    ap.add_argument("--stage", choices=STAGINGS, default="place", help="how the device arm builds its payload stack")
     _sweep.add_device(ap)
     args = ap.parse_args(argv)
     dev, fields = _sweep.device(args)
     fields = {**fields, "timing": "perf_counter"}
     return [line for K in args.ks or [100, 500, 1000, 5000, 10000]
             for line in prof_k(K, args.blocks or BLOCKS.get(K) or blocks_for(K, args.T), args.T, args.iters, dev,
-                               fields, tuple(args.arms), args.stage)]
+                               fields, tuple(args.arms))]
 
 
 if __name__ == "__main__":

@@ -17,6 +17,9 @@ repair symbols and succeeds once more arrive, with b.D unchanged by the
 failure.  On the card (`cuda`): b.D is pinned and a warm device decode copies
 nothing through pageable memory."""
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -36,14 +39,15 @@ OVERHEAD = {"gf2_w": 15, "gf256_w": 2, "structured": 5}  # overhead < H forces H
 MODES = ("single", "burst", "fast", "dups", "subblocks")
 
 
-def test_pinned_class_and_slab_blocks():
+def test_pinned_class_and_slab_blocks(monkeypatch):
     assert [tmesh.pinned_class(n) for n in (1, 2, 3, 1 << 20, (1 << 20) + 1)] == [1, 2, 4, 1 << 20, 1 << 21]
     one = 1000 * 1280  # K = 1000, T = 1280: 2 MiB pinned for 1.28 MB
     assert tmesh.slab_blocks(1, one) == 1
     g = tmesh.slab_blocks(64, one)
     assert g == 13 and g * one <= 16 << 20
     assert tmesh.slab_blocks(128, 100 * 1280) == 1  # 128000 in 131072: no slab pins less
-    assert tmesh.slab_blocks(3, one, most=2) in (1, 2)
+    monkeypatch.setattr(tmesh, "SLAB_MOST", 2)
+    assert tmesh.slab_blocks(3, one) in (1, 2)
 
 
 def test_host_zeros_on_the_cpu():
@@ -238,7 +242,8 @@ def test_repair_fails_then_succeeds(kind, monkeypatch):
 
 def test_slab_slots_and_reset():
     """Blocks share slabs (`_slab_g` a slab); a slot handed out again after
-    reset() or cleanup() starts from zero; `ingest_bytes` counts the slabs."""
+    reset() or cleanup() starts from zero, and the slab stays while other
+    blocks hold slots of it; `ingest_bytes` counts the slabs."""
     rng, data, (jenc, oc, osch) = _case("burst")
     steps, lost = _plan(jenc, data, rng, "burst", "gf2_w")
     dec = Decoder(oc, osch, device="cpu")
@@ -258,15 +263,42 @@ def test_slab_slots_and_reset():
     D = dec._block(0).D
     assert D[3].any() and not np.delete(D, 3, axis=0).any()  # the old rows are gone
     dec.cleanup(1)
+    assert len(dec._slabs) == 1
     dec.add_symbol(_symbols(jenc, data, 1, [0])[0].tobytes(), make_tag(1, 0), io)
     assert not dec._block(1).D[1:].any()
+
+
+@pytest.mark.parametrize("how", ["cleanup", "reset"])
+def test_slabs_are_freed_once_no_block_holds_them(how, monkeypatch):
+    """With one block a slab, cleaning up (or resetting) a block frees its
+    slab and no other; once every block is done the decoder holds no slab
+    and `ingest_bytes` is zero.  A block fed again gets a fresh slab."""
+    monkeypatch.setattr(tmesh, "SLAB_MOST", 1)
+    rng, data, (jenc, oc, osch) = _case("burst")
+    steps, _ = _plan(jenc, data, rng, "burst", "gf2_w")
+    dec = Decoder(oc, osch, device="cpu")
+    io = MemoryIO(np.zeros(data.size, np.uint8))
+    _feed(dec, io, steps)
+    assert dec._slab_g == 1 and len(dec._slabs) == dec.num_blocks == 3
+    refs = {i: weakref.ref(s) for i, s in dec._slabs.items()}
+    getattr(dec, how)(0)
+    gc.collect()
+    assert refs[0]() is None and all(refs[i]() is not None for i in (1, 2))
+    for sbn in (1, 2):
+        getattr(dec, how)(sbn)
+    gc.collect()
+    assert dec._slabs == {} and dec.ingest_bytes() == (0, 0) and all(r() is None for r in refs.values())
+    dec.add_symbol(_symbols(jenc, data, 2, [1])[0].tobytes(), make_tag(2, 1), io)
+    assert list(dec._slabs) == [2] and dec._block(2).D[1].any()
 
 
 @pytest.mark.cuda
 def test_pinned_ingestion_and_no_pageable_copy_on_card():
     """On the card every ingestion matrix is pinned, and a warm device decode
     (K = 1000, 8 blocks) copies nothing from or into pageable memory and
-    restores the object."""
+    restores the object.  The slabs die with their decoder, and the next
+    decoder of the size takes them back from PyTorch's host cache: it pins
+    nothing new."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: pytest -m cuda)")
     from torch.profiler import ProfilerActivity, profile
@@ -304,3 +336,11 @@ def test_pinned_ingestion_and_no_pageable_copy_on_card():
     assert np.array_equal(out, data)
     copies = [e.key for e in prof.key_averages() if e.key.startswith("Memcpy")]
     assert copies and not [k for k in copies if "Pageable" in k], copies
+    refs = [weakref.ref(s) for s in dec._slabs.values()]
+    del dec, io
+    gc.collect()
+    assert refs and all(r() is None for r in refs)
+    if hasattr(torch.cuda, "host_memory_stats"):
+        held = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+        dec, io, out = decode()
+        assert torch.cuda.host_memory_stats()["allocated_bytes.current"] == held
