@@ -49,9 +49,17 @@ Cells per K:
                  round before (a first untimed round fills them):
                  `e2e_<arm>_warm`, `e2e_auto_warm` and `e2e_auto_warm_ok`
 - e2e_ingest_ms  beside them: the ingestion the timed region leaves out,
-                 the least wall of a fresh decoder's add_symbols calls over
-                 the rounds (into its ingestion slabs, pinned on a card);
+                 the median wall of a fresh decoder's add_symbols calls over
+                 the timed rounds (into its ingestion slabs);
                  `e2e_ingest_warm_ms` of the warm rounds
+Each decode_e2e arm is read in R = max(3, min(--iters, 5)) rounds (5 at the
+default --iters; the deadline may cut a call to 3 rounds, never fewer): its
+value is the MEDIAN round, and `e2e_<arm>[_warm]_spread` beside it is (the
+slowest round - the fastest) / the median (`e2e_auto_spread` for the cold
+`decode_e2e`).  `e2e_auto_ok` and `e2e_auto_warm_ok` compare medians.  Up
+to the bench of run G8 (PERF.md section 4) these cells were the BEST of 2-3
+rounds instead: a median is slower than a best round by about half the
+spread, so an older best-of-rounds figure is not comparable with a median.
 - with `--mesh N` (off by default), two cells more per K, on N lanes dealt
   round-robin over the visible cards (`parallel.mesh`; on `--device cpu`, N
   CPU lanes): encode_e2e_mesh, encode_e2e through `generate(mesh=)` and
@@ -72,8 +80,8 @@ the replay's program; `"timing": "events"`; on
 `--device cpu` the host clock, `"perf_counter"`); a region shorter than 20
 launch overheads (measured at start) is repeated with more calls, and the
 cell is null where that cannot be reached.  The end-to-end cells (encode_e2e,
-decode0, decode_e2e) are the host clock between two device synchronisations,
-best of the rounds.  Rates are Gbps (8e-9 * bytes / s) under the JAX bench's
+decode0, decode_e2e) are the host clock between two device synchronisations:
+encode_e2e and decode0 the best of their rounds, decode_e2e the median.  Rates are Gbps (8e-9 * bytes / s) under the JAX bench's
 key names, and `*_mbps` in BASELINE.md's unit, 8 * bytes / (2**20 * s).
 
 Output: one JSON line per K on stdout as soon as that K is done, Ks in the
@@ -141,7 +149,8 @@ KEYS = ("encode", "encode_mbps", "encode_replay", "encode_e2e", "encode_e2e_mbps
         "batch_MB", "decode_e2e", "decode_e2e_mbps", "agg_e2e", "e2e_auto_ok", "vs_ref", "fresh_vs_ref",
         *(k for arm in ARMS[1:] for k in (f"e2e_{arm}", f"e2e_{arm}_mbps")),
         *(k for arm in ARMS for k in (f"e2e_{arm}_warm", f"e2e_{arm}_warm_mbps")), "e2e_auto_warm_ok",
-        "e2e_ingest_ms", "e2e_ingest_warm_ms")
+        "e2e_ingest_ms", "e2e_ingest_warm_ms",
+        *(f"e2e_{arm}{state}_spread" for state in ("", "_warm") for arm in ARMS))
 # the program counters of a K's line, all present always (capture_ms null on the CPU)
 PROGRAM_KEYS = ("capture_ms", "replay_program_capture", "replay_program_replay", "replay_program_shared",
                 "replay_compile_new", "replay_compile_hit")
@@ -298,7 +307,7 @@ def e2e_object(K, T, nblocks, dev, seed: int = 7):
     return data, enc, per_block
 
 
-def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",), mesh=None, warm=False):
+def bench_decode_e2e(K, T, nblocks, rounds, dev, clock: Clock, arms=("auto",), mesh=None, warm=False):
     """End-to-end fresh-pattern decode through the public path: nblocks blocks
     with DISTINCT ~6% loss patterns + 5% overhead, repaired by ONE
     Decoder.repair_all call per arm and round.  The timed region is exactly
@@ -309,16 +318,18 @@ def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",), me
     fills them, and each timed round finds the plans and memos of the round
     before.  The output is compared with the object each time.  Arms are
     interleaved round-robin so that drift of the shared host's speed falls on
-    every arm alike.  The arm "device_mesh" is "device" over `mesh`.
-    Returns ({arm: seconds}, the best round of each; the least ms of a fresh
-    decoder's ingestion over the rounds)."""
+    every arm alike; `rounds` rounds, fewer where the deadline passes, but
+    never fewer than 3.  The arm "device_mesh" is "device" over `mesh`.
+    Returns ({arm: the median round's seconds}, {arm: (slowest - fastest) /
+    median}, the median ms of a fresh decoder's ingestion over the timed
+    rounds)."""
     data, enc, per_block = e2e_object(K, T, nblocks, dev)
     payloads = data.reshape(nblocks * K, T)
     out = np.zeros(data.size, np.uint8)  # one buffer, like the reference's run loop
 
     sends = [(payloads[sbn * K + keep], [make_tag(sbn, int(e)) for e in keep], rep_pl,
               [make_tag(sbn, int(e)) for e in rep_esis]) for sbn, (keep, rep_esis, rep_pl) in enumerate(per_block)]
-    ingest = [float("inf")]
+    ingest = []
 
     def fresh_decoder():
         dec = Decoder(enc.oti_common(), enc.oti_scheme_specific(), device=dev)
@@ -328,7 +339,7 @@ def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",), me
         for src, src_tags, rep_pl, rep_tags in sends:
             dec.add_symbols(src, src_tags, io)
             dec.add_symbols(rep_pl, rep_tags, io)
-        ingest[0] = min(ingest[0], 1e3 * (time.perf_counter() - t0))
+        ingest.append(1e3 * (time.perf_counter() - t0))
         return dec, io
 
     def once(arm) -> float:
@@ -346,13 +357,16 @@ def bench_decode_e2e(K, T, nblocks, iters, dev, clock: Clock, arms=("auto",), me
         cc.clear_decoder_cache()
         for arm in arms:
             once(arm)
-    best = {arm: float("inf") for arm in arms}
-    for rnd in range(max(2, iters)):
+        ingest.clear()
+    runs = {arm: [] for arm in arms}
+    for rnd in range(max(3, rounds)):
         for arm in arms:
-            best[arm] = min(best[arm], once(arm))
-        if rnd and clock.expired():  # every arm has its two rounds at least
+            runs[arm].append(once(arm))
+        if rnd >= 2 and clock.expired():  # every arm has its three rounds at least
             break
-    return best, ingest[0]
+    med = {arm: float(np.median(r)) for arm, r in runs.items()}
+    spread = {arm: (max(r) - min(r)) / med[arm] for arm, r in runs.items()}
+    return med, spread, float(np.median(ingest))
 
 
 def bench_K(K, T, blocks, iters, rng, dev, clock: Clock, dec_blocks=0, mesh=None) -> dict:
@@ -544,12 +558,13 @@ def lanes_mesh(n: int, dev: torch.device):
 
 
 def _auto_ok(K, state: str, secs: dict, nbytes: int) -> bool:
-    """Routing sanity: whether "auto" came within 10% of the best arm."""
+    """Routing sanity: whether "auto" came within 10% of the best arm, both
+    read as the median of their rounds (`secs`, as bench_decode_e2e gives)."""
     best_arm = min(secs, key=secs.get)
     ok = bool(secs["auto"] <= secs[best_arm] / 0.9)
     if not ok:
         log(f"WARN K={K} ({state}): auto arm {_gbps(nbytes, secs['auto']):.2f} Gbps < 0.9x best arm "
-            f"'{best_arm}' {_gbps(nbytes, secs[best_arm]):.2f} -- recalibrate routing")
+            f"'{best_arm}' {_gbps(nbytes, secs[best_arm]):.2f} (medians) -- recalibrate routing")
     return ok
 
 
@@ -577,21 +592,27 @@ def run_grid(args, ks, results, dev, clock: Clock, fields: dict) -> None:
                 arms = ARMS if K <= RES_MAX_K else tuple(a for a in ARMS if not a.startswith("res"))
             if mesh is not None:
                 arms += (MESH_ARM,)
-            secs, r["e2e_ingest_ms"] = bench_decode_e2e(K, args.T, nb, 3, dev, clock, arms=arms, mesh=mesh)
+            rounds = max(3, min(args.iters, 5))
+            secs, spread, r["e2e_ingest_ms"] = bench_decode_e2e(K, args.T, nb, rounds, dev, clock, arms=arms,
+                                                                mesh=mesh)
             nbytes = K * args.T * nb
             if mesh is not None:
                 arms = arms[:-1]
                 s_mesh = secs.pop(MESH_ARM)
                 r["e2e_device_mesh"], r["e2e_device_mesh_mbps"] = _gbps(nbytes, s_mesh), _mbps(nbytes, s_mesh)
             r["decode_e2e"], r["decode_e2e_mbps"] = _gbps(nbytes, secs["auto"]), _mbps(nbytes, secs["auto"])
+            for arm in arms:
+                r[f"e2e_{arm}_spread"] = spread[arm]
             for arm in arms[1:]:
                 r[f"e2e_{arm}"], r[f"e2e_{arm}_mbps"] = _gbps(nbytes, secs[arm]), _mbps(nbytes, secs[arm])
             if len(arms) > 1:
                 r["e2e_auto_ok"] = _auto_ok(K, "cold", secs, nbytes)
             if args.arms and not clock.expired():  # the same object and patterns, warm
-                wsecs, r["e2e_ingest_warm_ms"] = bench_decode_e2e(K, args.T, nb, 3, dev, clock, arms=arms, warm=True)
+                wsecs, wspread, r["e2e_ingest_warm_ms"] = bench_decode_e2e(K, args.T, nb, rounds, dev, clock,
+                                                                           arms=arms, warm=True)
                 for arm, s in wsecs.items():
                     r[f"e2e_{arm}_warm"], r[f"e2e_{arm}_warm_mbps"] = _gbps(nbytes, s), _mbps(nbytes, s)
+                    r[f"e2e_{arm}_warm_spread"] = wspread[arm]
                 r["e2e_auto_warm_ok"] = _auto_ok(K, "warm", wsecs, nbytes)
             if r["encode"]:
                 r["agg_e2e"] = 1.0 / (1.0 / r["encode"] + 1.0 / r["decode_e2e"])

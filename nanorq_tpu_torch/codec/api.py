@@ -459,28 +459,26 @@ class Decoder(_CodecBase):
         """The block's ingestion matrix b.D [K, T]: received source symbols in
         their rows, every other row zero (repair never writes into it).  It
         is a slot of a host slab that `_slab_g` consecutive blocks share
-        (`parallel.mesh.host_zeros`: pinned on a card, so that the device arm
-        uploads its rows with no staging copy, and sized by
-        `parallel.mesh.slab_blocks` for the pinned allocator's power-of-two
-        blocks; plain numpy on the CPU).  A slot given back (`reset`) is
-        zeroed, or its slab dropped once no block holds a slot of it.  The
-        native host arms read its rows in place (`_row_ptrs`); the array
-        keeps the slab alive."""
+        (sized by `parallel.mesh.slab_blocks`): a `parallel.mesh.HostSlab`,
+        pageable, which the device arm's upload page-locks in place the first
+        time it reads the slab (`parallel.mesh.assemble`), so that a decoder
+        that only the host arms read pins nothing.  A slot given back
+        (`reset`) is zeroed, or its slab dropped once no block holds a slot
+        of it.  The native host arms read its rows in place (`_row_ptrs`);
+        the array keeps the slab alive."""
         if b.D is None:
             g = self._slab_g
             slab = self._slabs.get(sbn // g)
             if slab is None:
                 n = min(g, self.num_blocks - sbn // g * g)
-                slab = self._slabs[sbn // g] = lanes.host_zeros((n, self.block_symbols(0), self.scheme.T),
-                                                                 self.device)
+                slab = self._slabs[sbn // g] = np.asarray(lanes.HostSlab((n, self.block_symbols(0), self.scheme.T)))
             b.D = slab[sbn % g, : b.K]
         return b.D
 
     def reset(self, sbn: int) -> None:
         """Forget block sbn's symbols.  Its slot is zeroed for the block's
         next symbols, unless no block of its slab holds a slot any more:
-        then the slab goes back to the host allocator (PyTorch's pinned
-        cache, on a card)."""
+        then the slab is freed (and unpinned, where a card read it)."""
         b = self._blocks.get(sbn)
         D = None if b is None else b.D
         super().reset(sbn)
@@ -499,12 +497,12 @@ class Decoder(_CodecBase):
         super().cleanup(sbn)
 
     def ingest_bytes(self) -> tuple[int, int]:
-        """(bytes of the ingestion slabs, bytes they pin on a card: each
-        slab's `parallel.mesh.pinned_class`; on the CPU the first)."""
+        """(bytes of the ingestion slabs, bytes they pin on a card now:
+        `parallel.mesh.pinned_bytes` of each; on the CPU the first)."""
         held = sum(s.nbytes for s in self._slabs.values())
         if self.device.type != "cuda":
             return held, held
-        return held, sum(lanes.pinned_class(s.nbytes) for s in self._slabs.values())
+        return held, sum(lanes.pinned_bytes(s) for s in self._slabs.values())
 
     def add_symbols(self, payloads: np.ndarray, tags, io: IOContext) -> list[int]:
         """Batched ingestion: payloads [n, T] with per-symbol tags.

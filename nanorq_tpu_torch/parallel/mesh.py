@@ -24,6 +24,7 @@ and a failed pin, stream or launch raises where it happens.
 """
 
 import contextlib
+import mmap
 
 import numpy as np
 import torch
@@ -150,6 +151,63 @@ def host_zeros(shape: tuple, device) -> np.ndarray:
     if resolve(device).type == "cuda":
         return torch.zeros(shape, dtype=torch.uint8, pin_memory=True).numpy()
     return np.zeros(shape, np.uint8)
+
+
+class HostSlab:
+    """Zeroed host memory of one `shape` (uint8) that stays pageable until a
+    card reads it: it starts on a page and fills whole pages, so that `pin`
+    page-locks it in place (cudaHostRegister, portable to every card) with
+    no copy and nothing in PyTorch's pinned cache.  `np.asarray(slab)` is
+    the memory as an array, and every view of it keeps the slab alive; when
+    the last dies the pages are unregistered (after the card they were
+    pinned for has finished its work, so no copy still reads them) and
+    freed.  `HostSlab.registered` counts the bytes pinned in place now."""
+
+    __slots__ = ("_raw", "ptr", "nbytes", "shape", "pinned_on")
+    registered = 0  # bytes of every live pinned slab
+
+    def __init__(self, shape: tuple):
+        self.pinned_on = None
+        self.shape = tuple(int(n) for n in shape)
+        self.nbytes = -(-max(1, int(np.prod(self.shape))) // mmap.PAGESIZE) * mmap.PAGESIZE
+        self._raw = np.zeros(self.nbytes + mmap.PAGESIZE, np.uint8)  # its pages are faulted in as written
+        self.ptr = self._raw.ctypes.data + -self._raw.ctypes.data % mmap.PAGESIZE
+
+    @property
+    def __array_interface__(self) -> dict:
+        return {"shape": self.shape, "typestr": "|u1", "data": (self.ptr, False), "version": 3}
+
+    def pin(self, device: torch.device) -> None:
+        """Page-lock the slab in place for copies to `device` (once)."""
+        if self.pinned_on is None:
+            err = int(torch.cuda.cudart().cudaHostRegister(self.ptr, self.nbytes, 1))  # cudaHostRegisterPortable
+            if err:
+                raise RuntimeError(f"cudaHostRegister of {self.nbytes} bytes failed: cudaError {err}")
+            self.pinned_on = device
+            HostSlab.registered += self.nbytes
+
+    def __del__(self, _sync=torch.cuda.synchronize, _cudart=torch.cuda.cudart):
+        if self.pinned_on is not None:
+            _sync(self.pinned_on)
+            _cudart().cudaHostUnregister(self.ptr)
+            type(self).registered -= self.nbytes
+
+
+def slab_of(a) -> HostSlab | None:
+    """The HostSlab under the numpy array `a`, if it lies over one."""
+    while isinstance(a, np.ndarray):
+        a = a.base
+    return a if isinstance(a, HostSlab) else None
+
+
+def pinned_bytes(a: np.ndarray) -> int:
+    """The host bytes that keep `a` page-locked: a HostSlab's pages once
+    pinned (else 0), the `pinned_class` of a block of PyTorch's pinned
+    allocator (`host_zeros` on a card), 0 for other memory."""
+    slab = slab_of(a)
+    if slab is not None:
+        return slab.nbytes if slab.pinned_on is not None else 0
+    return pinned_class(a.nbytes) if torch.from_numpy(a).is_pinned() else 0
 
 
 def host_matrix(live: int, rows: int, width: int, device) -> np.ndarray:
@@ -281,9 +339,10 @@ def assemble(lane: Lane, shape: tuple, heads: list, extra: list, places: np.ndar
     are zero, so each lands as it is; they are distinct and in range.
 
     On a CUDA lane each head crosses in one `non_blocking` copy of its own,
-    with no staging copy where it is pinned (`host_zeros`; a pageable head,
-    of a decoder of the CPU on a mesh of cards, is copied as it is and the
-    host waits for that copy); `extra` and the two index rows cross through
+    with no staging copy: a head is pinned (`host_zeros`), or lies over a
+    `HostSlab`, which is page-locked in place here the first time a card
+    reads it (any other pageable head is copied as it is, and the host
+    waits for that copy); `extra` and the two index rows cross through
     one pinned staging buffer and one copy; the stack and that buffer are
     allocated through `ops/program.empty`.  The host copy into the staging
     buffer is timed (`utils.stats` timer "host_stage").  A CPU lane builds
@@ -304,6 +363,9 @@ def assemble(lane: Lane, shape: tuple, heads: list, extra: list, places: np.ndar
         x[:, lo:].zero_()  # lo = 0 where a head is None
         for j, h in enumerate(heads):
             if h is not None:
+                slab = slab_of(h) if lane.cuda else None
+                if slab is not None:
+                    slab.pin(lane.device)
                 x[j, : h.shape[0]].copy_(torch.as_tensor(h), non_blocking=True)
         if m:
             dev = buf

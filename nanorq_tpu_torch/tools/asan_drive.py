@@ -15,9 +15,9 @@ the host arms' reads and writes through `Decoder._row_ptrs` /
 math of the encode is numpy (`precode.solver.solve_encoder`,
 `precode.schedule.replay_numpy`, `rfc.tuples.lt_indices`), and the decoder
 is the port's, on the CPU.  Then one round trip through a decoder of the
-card, whose ingestion matrices are pinned slots of its slabs
-(`Decoder._source_rows`, `parallel.mesh.host_zeros`): the native arm reads
-its rows out of pinned memory.  That case needs CUDA to initialize under
+card whose ingestion slabs are page-locked in place as the device arm's
+upload does it (`Decoder._source_rows`, `parallel.mesh.HostSlab.pin`): the
+native arm reads its rows out of pinned memory.  That case needs CUDA to initialize under
 the preloaded ASan, which a child process tries first (on an H100 host it
 needs `ASAN_OPTIONS=detect_leaks=0:protect_shadow_gap=0`); where it does
 not, the script says why and the CPU cases stand.  The JAX package's script must not
@@ -63,6 +63,7 @@ def drive(K: int, T: int, Z: int, loss: float, seed: int, backend: str, pinned: 
     from nanorq_tpu_torch.codec.api import Decoder, Encoder
     from nanorq_tpu_torch.codec.oti import make_tag
     from nanorq_tpu_torch.io.ioctx import MemoryIO
+    from nanorq_tpu_torch.parallel.mesh import slab_of
     from nanorq_tpu_torch.precode.schedule import replay_numpy
     from nanorq_tpu_torch.precode.solver import solve_encoder
     from nanorq_tpu_torch.rfc.params import params_init
@@ -96,6 +97,9 @@ def drive(K: int, T: int, Z: int, loss: float, seed: int, backend: str, pinned: 
         dec.add_symbols(src[keep], [make_tag(sbn, int(e)) for e in keep], io)
         dec.add_symbols(rep, [make_tag(sbn, int(e)) for e in range(Kb, Kb + nrep)], io)
         if pinned:
+            slab = slab_of(dec._block(sbn).D)
+            if slab is not None:  # pageable: page-locked in place, as the device arm's upload does it
+                slab.pin(dec.device)
             check(torch.from_numpy(dec._block(sbn).D).is_pinned(), "the ingestion matrix is not pinned")
     check(dec.repair_all(io, backend=backend), f"repair_all({backend}) failed")
     check(np.array_equal(out, data), f"round-trip bytes differ ({backend})")

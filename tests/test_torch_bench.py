@@ -199,7 +199,48 @@ def test_decode_e2e_object_is_what_the_jax_package_makes_and_decodes():
     assert lost and jdec.repair_all(jio) and np.array_equal(out, jdata)
     import torch
 
-    secs, ingest_ms = bench.bench_decode_e2e(K, T, nb, 2, torch.device("cpu"),
-                                             bench.Clock(torch.device("cpu"), 60.0),
-                                             arms=bench.ARMS)  # asserts byte equality per arm and round
+    secs, spread, ingest_ms = bench.bench_decode_e2e(K, T, nb, 3, torch.device("cpu"),
+                                                     bench.Clock(torch.device("cpu"), 60.0),
+                                                     arms=bench.ARMS)  # asserts byte equality per arm and round
     assert sorted(secs) == sorted(bench.ARMS) and all(0 < s < 60 for s in secs.values()) and ingest_ms > 0
+    assert sorted(spread) == sorted(bench.ARMS) and all(s >= 0 for s in spread.values())
+
+
+def test_arms_emit_a_spread_beside_each_median(tiny_run):
+    """An `--arms` run reads every arm cold and warm in rounds and prints,
+    beside each median, its spread: (slowest - fastest) / median."""
+    _, lines = tiny_run
+    for ln in lines[:2]:
+        for arm in bench.ARMS:
+            for state in ("", "_warm"):
+                v = ln[f"e2e_{arm}{state}_spread"]
+                assert isinstance(v, float) and math.isfinite(v) and v >= 0, (arm, state)
+
+
+def test_auto_ok_decides_on_the_medians(monkeypatch):
+    """A clock that returns fixed round times: "auto" has the fastest single
+    round (1 s against host's 2 s) but a median of 5 s, so it is not within
+    10% of the best arm; with the round times swapped it is.  The medians and
+    spreads are those of the rounds."""
+    import torch
+
+    def clock_of(times):
+        seq = iter(times)
+
+        def wall(self, fn):
+            fn()
+            return next(seq)
+
+        monkeypatch.setattr(bench.Clock, "wall", wall)
+        return bench.Clock(torch.device("cpu"), 60.0)
+
+    K, T, nb = 10, 16, 2
+    rounds = [(1.0, 2.0), (5.0, 2.0), (5.0, 2.1), (6.0, 1.9), (5.0, 2.0)]  # (auto, host) per round
+    clock = clock_of([x for rnd in rounds for x in rnd])
+    secs, spread, _ = bench.bench_decode_e2e(K, T, nb, 5, torch.device("cpu"), clock, arms=("auto", "host"))
+    assert secs == {"auto": 5.0, "host": 2.0}
+    assert spread == pytest.approx({"auto": (6.0 - 1.0) / 5.0, "host": (2.1 - 1.9) / 2.0})
+    assert not bench._auto_ok(K, "cold", secs, K * T * nb)
+    clock = clock_of([x for a, h in rounds for x in (h, a)])
+    secs, _, _ = bench.bench_decode_e2e(K, T, nb, 5, torch.device("cpu"), clock, arms=("auto", "host"))
+    assert secs == {"auto": 2.0, "host": 5.0} and bench._auto_ok(K, "cold", secs, K * T * nb)
