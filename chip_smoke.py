@@ -55,9 +55,11 @@ Phases, each printing its own lines and its seconds:
 6. probe path: nanorq_tpu_torch.tools.gather_probe over both probe tables,
    every line bit-exact, with its launch counts;
 7. decode arms: the phase-4 object and losses through repair_all with
-   backend "auto" (warm plans from phase 4: every block on the device),
-   then "res", "res_host" and "host", cold (memos cleared) and warm, then
-   "auto" cold; every run restores the bytes; seconds and Mb/s per arm;
+   backend "auto" (warm plans from phase 4), then "res", "res_host" and
+   "host", cold (memos cleared) and warm, then "auto" cold; every "auto"
+   block goes to the arm the port's rule names for K' (`codec.api.auto_arm`,
+   its boundaries on an `[arms]` line); every run restores the bytes;
+   seconds and Mb/s per arm;
 8. cli: nanorq_tpu_torch.cli.encode and .decode on an 8 MiB file at
    T=1280, decoded with the default backend and with --layout-cache (the
    device arm), byte-compared with the file;
@@ -579,16 +581,21 @@ def _counts() -> dict:
 
 def phase_arms(enc, data, reps, dev, deliveries) -> dict:
     """The decode arms on the phase-4 object: "auto" warm (phase 4 cached every
-    pattern's plan, so every block must go to the device arm), then "res",
-    "res_host" and "host" cold (decode memos cleared; the per-K' canonical
-    factorization stays, as in nanorq_tpu) and warm, then "auto" cold."""
+    pattern's plan), then "res", "res_host" and "host" cold (decode memos
+    cleared; the per-K' canonical factorization stays, as in nanorq_tpu) and
+    warm, then "auto" cold.  Every block of an "auto" run must go to the arm
+    the port's rule names for K' (`codec.api.auto_arm`), whose boundaries
+    the `[arms]` line prints."""
     from nanorq_tpu_torch.codec import cache as tcache
+    from nanorq_tpu_torch.codec.api import auto_arm, auto_rule
 
-    runs = [("auto", "warm", {"repair_device_blocks": Z})]
+    _say("arms", Kp=enc.P.Kp, rule=json.dumps(auto_rule()), warm=auto_arm(enc.P.Kp, True),
+         cold=auto_arm(enc.P.Kp, False))
+    runs = [("auto", "warm", {f"repair_{auto_arm(enc.P.Kp, True)}_blocks": Z})]
     for arm, counter in (("res", "repair_res_blocks"), ("res_host", "repair_res_host_blocks"),
                          ("host", "repair_host_blocks")):
         runs += [(arm, "cold", {counter: Z}), (arm, "warm", {counter: Z})]
-    runs.append(("auto", "cold", {"repair_host_blocks": Z}))  # K' = 1002 > NANORQ_RES_HOST_MAX
+    runs.append(("auto", "cold", {f"repair_{auto_arm(enc.P.Kp, False)}_blocks": Z}))
     secs = {}
     for arm, state, routed in runs:
         if state == "cold":

@@ -91,7 +91,44 @@ _RES_HOST_MAX = int(os.environ.get("NANORQ_RES_HOST_MAX", "560"))
 # K' at or below which "auto" sends a warm pattern (its device plan cached)
 # to the host residual arm too: warm, res_host / device, 9341 / 7745 Mb/s at
 # K'=301, 9424 / 7962 at 405, 9043 / 12693 at 511 (PERF.md, section 6)
-_RES_HOST_WARM_MAX = 440
+_RES_HOST_WARM_MAX = 250
+# the cold arms above _RES_HOST_MAX, by the kind of plan a pattern gets
+_COLD_DENSE_ARM = "host"
+_COLD_STRUCTURED_ARM = "host"
+
+
+def auto_arm(Kp: int, warm: bool) -> str:
+    """The arm "auto" sends a block of K' to (see the module docstring):
+    `warm` when its pattern's device plan is cached.  Cold, above
+    _RES_HOST_MAX, the kind of plan the pattern will get decides: dense-W
+    up to `cache.WPATH_MAX_KP` (read at the call), structured above."""
+    if warm:
+        return "res_host" if Kp <= _RES_HOST_WARM_MAX else "device"
+    if Kp <= _RES_HOST_MAX:
+        return "res_host"
+    return _COLD_DENSE_ARM if Kp <= _cache.WPATH_MAX_KP else _COLD_STRUCTURED_ARM
+
+
+def auto_rule() -> dict:
+    """The boundaries of `auto_arm` in force."""
+    return {"res_host_max": _RES_HOST_MAX, "res_host_warm_max": _RES_HOST_WARM_MAX,
+            "wpath_max_kp": _cache.WPATH_MAX_KP, "cold_dense": _COLD_DENSE_ARM,
+            "cold_structured": _COLD_STRUCTURED_ARM}
+
+
+def _device_may_read(Kp: int) -> bool:
+    """Whether a decoder of K' is likely to meet the device arm: under the
+    default backend (env NANORQ_DECODE_BACKEND) "device" always, a host arm
+    never; "auto" where its cold rule sends K' to the device, or where a
+    device plan of K' was built since the decoder cache was last cleared
+    (the device arm has read a decoder of K', and "auto" sends a pattern met
+    again there).  A decoder that the device arm reads all the same
+    (explicit backends, meshes, `repair_block`) has its slabs page-locked in
+    place by the upload."""
+    backend = os.environ.get("NANORQ_DECODE_BACKEND", "auto")
+    if backend != "auto":
+        return backend == "device"
+    return auto_arm(Kp, False) == "device" or _cache.has_device_plans(Kp)
 
 
 def _zero_row(T: int) -> np.ndarray:
@@ -423,9 +460,11 @@ class Decoder(_CodecBase):
         self.P = params_init(max(1, self.scheme.block_symbols(0)))
         self.max_esi = 2 * self.P.Kp
         self.device = resolve(device)
-        # ingestion slabs: slab i holds the rows of blocks [i*g, (i+1)*g)
+        # ingestion slabs: slab i holds the rows of blocks [i*g, (i+1)*g),
+        # pinned from the start where the device arm may read them
         self._slab_g = lanes.slab_blocks(self.num_blocks, self.block_symbols(0) * self.scheme.T)
         self._slabs: dict[int, np.ndarray] = {}
+        self._pin = self.device.type == "cuda" and _device_may_read(self.P.Kp)
 
     def set_max_esi(self, max_esi: int) -> bool:
         if max_esi >= (1 << 24) or max_esi < self.P.Kp:
@@ -459,26 +498,33 @@ class Decoder(_CodecBase):
         """The block's ingestion matrix b.D [K, T]: received source symbols in
         their rows, every other row zero (repair never writes into it).  It
         is a slot of a host slab that `_slab_g` consecutive blocks share
-        (sized by `parallel.mesh.slab_blocks`): a `parallel.mesh.HostSlab`,
-        pageable, which the device arm's upload page-locks in place the first
-        time it reads the slab (`parallel.mesh.assemble`), so that a decoder
-        that only the host arms read pins nothing.  A slot given back
-        (`reset`) is zeroed, or its slab dropped once no block holds a slot
-        of it.  The native host arms read its rows in place (`_row_ptrs`);
-        the array keeps the slab alive."""
+        (sized by `parallel.mesh.slab_blocks` for the pinned allocator's
+        power-of-two blocks).  Where the device arm may read the decoder
+        (`_device_may_read`, decided at construction on a card) the slab is
+        pinned from the start (`parallel.mesh.host_zeros`, out of PyTorch's
+        pinned cache, which the next decoder of the size reuses); else it
+        is a pageable `parallel.mesh.HostSlab`, which the device arm's
+        upload page-locks in place should it read the slab after all
+        (`parallel.mesh.assemble`), so a decoder that only the host arms read
+        pins nothing.  A slot given back (`reset`) is zeroed, or its slab
+        dropped once no block holds a slot of it.  The native host arms read
+        its rows in place (`_row_ptrs`); the array keeps the slab alive."""
         if b.D is None:
             g = self._slab_g
             slab = self._slabs.get(sbn // g)
             if slab is None:
-                n = min(g, self.num_blocks - sbn // g * g)
-                slab = self._slabs[sbn // g] = np.asarray(lanes.HostSlab((n, self.block_symbols(0), self.scheme.T)))
+                shape = (min(g, self.num_blocks - sbn // g * g), self.block_symbols(0), self.scheme.T)
+                slab = lanes.host_zeros(shape, self.device) if self._pin else np.asarray(lanes.HostSlab(shape))
+                self._slabs[sbn // g] = slab
             b.D = slab[sbn % g, : b.K]
         return b.D
 
     def reset(self, sbn: int) -> None:
         """Forget block sbn's symbols.  Its slot is zeroed for the block's
         next symbols, unless no block of its slab holds a slot any more:
-        then the slab is freed (and unpinned, where a card read it)."""
+        then the slab goes back to the host allocator (PyTorch's pinned
+        cache for a slab pinned from the start; a `HostSlab` is unpinned,
+        where a card read it, and freed)."""
         b = self._blocks.get(sbn)
         D = None if b is None else b.D
         super().reset(sbn)
@@ -1043,16 +1089,10 @@ class Decoder(_CodecBase):
         elif backend == "res_host":
             rhost_work = work
         else:  # auto: the port's rule (module docstring)
-            Kp = self.P.Kp
+            queue = {"device": dev_work, "res_host": rhost_work, "host": host_work}
             for item in work:
                 hit, plan = _cache.decoder_plan_cached(self.P, item[2], item[3])
-                warm = hit and plan is not None
-                if warm and Kp > _RES_HOST_WARM_MAX:
-                    dev_work.append(item)
-                elif Kp <= (_RES_HOST_WARM_MAX if warm else _RES_HOST_MAX):
-                    rhost_work.append(item)
-                else:
-                    host_work.append(item)
+                queue[auto_arm(self.P.Kp, hit and plan is not None)].append(item)
         launched = []
         if rhost_work:
             rres = self._repair_residual_host_batch(rhost_work, io)

@@ -38,6 +38,7 @@ _enc_cache: dict[tuple[int, int], DeviceSchedule] = {}
 # entry-counted, so steady large-K' streams cannot pin unbounded host RAM
 _DEC_BUDGET = int(float(os.environ.get("NANORQ_DEC_CACHE_MB", 256)) * (1 << 20))
 _dec_cache = ByteLRU(_DEC_BUDGET, "dec_cache")
+_planned_kps: set[int] = set()  # the K' of every device plan decoder_plan built since the last clear
 
 
 def encoder_schedule(Kp: int, CB: int | None = None) -> DeviceSchedule:
@@ -68,6 +69,7 @@ def clear_decoder_cache() -> None:
     per-K' solve states stay (they are the decoder-side analog of the
     encoder's loss-independent nanorq_precalculate artifact)."""
     _dec_cache.clear()
+    _planned_kps.clear()
     with _lt_lock:
         _lt_cache.clear()
     with _wrow_lock:
@@ -403,8 +405,16 @@ def decoder_plan(P: Params, isis: np.ndarray, overhead: int):
             plan = compile_device(st, canonical=True)
     if plan is None:
         stats.count("decode_rank_deficient")
+    else:
+        _planned_kps.add(P.Kp)
     _dec_cache.put(key, plan)
     return plan
+
+
+def has_device_plans(Kp: int) -> bool:
+    """Whether decoder_plan built a device plan of K' since the decoder
+    cache was last cleared: whether a pattern of K' can be met warm."""
+    return Kp in _planned_kps
 
 
 def decoder_schedule(P: Params, isis: np.ndarray, overhead: int, CB: int | None = None) -> DeviceSchedule | None:

@@ -14,15 +14,18 @@ than it lost (the JAX tools' patterns, seed 7).  Every arm decodes it cold
 runs), `iters` fresh decoders each; the fastest run's split is printed.
 Every run also reports `ingest_ms`: the wall of the fresh decoder's
 `add_symbols` calls (outside the decode, as the bench keeps it), where the
-decoder's ingestion slabs are allocated (`Decoder._source_rows`: pinned on a
-card).  Before any run, each K's first decoder is timed as a one-shot user
-meets it: `ingest_first_ms` (its pinned slabs new to PyTorch's host cache,
-where no earlier K left blocks of their size) and `decode_first_ms`
-(`repair_all`, the default arm, cold); its line has `ingest_bytes` /
-`pinned_bytes` (`Decoder.ingest_bytes`) and, on a card, `host_memory_kept`:
-what the byte counts of `torch.cuda.host_memory_stats` gained over the
-first decoder's life, read after it died (`allocated_bytes`: what the host
-cache still pins).  The first decoder touches only the package's public calls, so
+decoder's ingestion slabs are allocated (`Decoder._source_rows`: on a card
+pinned where the device arm may read them, else pageable until it does).
+Before any run, each K's first decoder is timed as a one-shot user meets it:
+`ingest_first_ms` (any pinned slabs new to PyTorch's host cache, where no
+earlier K left blocks of their size) and `decode_first_ms` (`repair_all`,
+the default arm, cold); its line has `ingest_bytes` / `pinned_bytes`
+(`Decoder.ingest_bytes`, read after the decode) and, on a card,
+`host_memory_kept`: what the byte counts of `torch.cuda.host_memory_stats`
+gained over the first decoder's life, read after it died (`allocated_bytes`:
+what the host cache still pins), and `registered_kept`: the bytes still
+page-locked in place (`parallel.mesh.HostSlab.registered`; null where the
+package has no such slabs).  The first decoder touches only the package's public calls, so
 this file also times an older checkout's (run it as a script with that
 checkout on PYTHONPATH, `--arms host`; `python -m` would take the working
 directory's package).
@@ -329,19 +332,23 @@ def _first(obj: _Object) -> dict:
     counts gained over its life, read after it died."""
     cuda = obj.dev.type == "cuda"
     before = _host_bytes() if cuda else {}
+    slabs = getattr(lanes, "HostSlab", None)
+    reg0 = slabs.registered if slabs is not None else None
     cc.clear_decoder_cache()
     dec, out, io, ingest = obj.fresh()
     t = time.perf_counter()
     if not (dec.repair_all(io) and np.array_equal(out, obj.data)):
         raise AssertionError(f"K={obj.K}: the first decoder did not restore the object")
     line = {"ingest_first_ms": ingest, "decode_first_ms": 1e3 * (time.perf_counter() - t),
-            "ingest_bytes": None, "pinned_bytes": None, "host_memory_kept": None}
+            "ingest_bytes": None, "pinned_bytes": None, "host_memory_kept": None, "registered_kept": None}
     if hasattr(dec, "ingest_bytes"):
         line["ingest_bytes"], line["pinned_bytes"] = dec.ingest_bytes()
     del dec, io
     gc.collect()
     if cuda and before:
         line["host_memory_kept"] = {k: v - before.get(k, 0) for k, v in _host_bytes().items()}
+    if reg0 is not None:
+        line["registered_kept"] = slabs.registered - reg0
     return line
 
 

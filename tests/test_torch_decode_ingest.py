@@ -14,8 +14,12 @@ GF(2), dense-W GF(256), structured) and each way of delivering: symbol by
 symbol, a batched partial burst, the in-order fast path with a partial last
 block, duplicates, sub-blocks (N > 1), and a repair that fails for lack of
 repair symbols and succeeds once more arrive, with b.D unchanged by the
-failure.  On the card (`cuda`): b.D is pinned and a warm device decode copies
-nothing through pageable memory."""
+failure.  The slabs: pageable `parallel.mesh.HostSlab`s, page-aligned, unless
+the device arm may read the decoder (`codec.api._device_may_read`).  On the
+card (`cuda`): a warm decoder's b.D is pinned and its device decode copies
+nothing through pageable memory; a decoder that "auto" sends to a host arm
+pins nothing; a cold device decode page-locks its slabs in place, copies
+nothing through pageable memory, and unpins them when the decoder dies."""
 
 import gc
 import weakref
@@ -48,6 +52,55 @@ def test_pinned_class_and_slab_blocks(monkeypatch):
     assert tmesh.slab_blocks(128, 100 * 1280) == 1  # 128000 in 131072: no slab pins less
     monkeypatch.setattr(tmesh, "SLAB_MOST", 2)
     assert tmesh.slab_blocks(3, one) in (1, 2)
+
+
+def test_host_slab_is_page_aligned_and_lives_with_its_views():
+    """A HostSlab is zeroed, writable, starts on a page and fills whole pages;
+    a view keeps it alive after the array is gone; nothing is pinned on the
+    CPU."""
+    import mmap
+
+    a = np.asarray(tmesh.HostSlab((3, 1000, 48)))
+    slab = tmesh.slab_of(a)
+    assert isinstance(slab, tmesh.HostSlab) and a.shape == (3, 1000, 48) and a.dtype == np.uint8
+    assert a.ctypes.data % mmap.PAGESIZE == 0 and slab.nbytes % mmap.PAGESIZE == 0 and slab.nbytes >= a.nbytes
+    assert not a.any() and a.flags.writeable and tmesh.pinned_bytes(a) == 0 and slab.pinned_on is None
+    view = a[1, 5:9]
+    del a
+    view[:] = 7
+    assert tmesh.slab_of(view) is slab and np.asarray(slab)[1, 5:9].all()
+    assert tmesh.slab_of(np.zeros(4, np.uint8)) is None and tmesh.HostSlab.registered == 0
+
+
+def test_device_may_read_follows_the_rule(monkeypatch):
+    """A decoder's slabs are pinned from the start only where the device arm
+    is likely to read it: under "auto", where the cold rule sends K' to the
+    device, or where a device plan of K' was built (the device arm read a
+    decoder of K' before); "device" always; a host arm never."""
+    from nanorq_tpu_torch.codec import api
+
+    monkeypatch.delenv("NANORQ_DECODE_BACKEND", raising=False)
+    tcache.clear_decoder_cache()
+    rule = api.auto_rule()
+    Kp = next(k for k in (1002, 5008, 10017, 20152, 50511) if api.auto_arm(k, False) != "device")
+    assert not api._device_may_read(Kp) and not api._device_may_read(rule["res_host_max"])
+    monkeypatch.setattr(tcache, "_planned_kps", {Kp})  # as decoder_plan leaves it
+    assert api._device_may_read(Kp) and tcache.has_device_plans(Kp)
+    tcache.clear_decoder_cache()
+    assert not tcache.has_device_plans(Kp)
+    monkeypatch.setenv("NANORQ_DECODE_BACKEND", "device")
+    assert api._device_may_read(rule["res_host_max"])
+    monkeypatch.setenv("NANORQ_DECODE_BACKEND", "host")
+    monkeypatch.setattr(tcache, "_planned_kps", {Kp})
+    assert not api._device_may_read(Kp)
+    monkeypatch.delenv("NANORQ_DECODE_BACKEND")
+    rng, data, (jenc, oc, osch) = _case("burst")
+    steps, _ = _plan(jenc, data, rng, "burst", "gf2_w")
+    dec, out = Decoder(oc, osch, device="cpu"), np.zeros(data.size, np.uint8)
+    assert not dec._pin  # nothing is pinned on the CPU
+    _feed(dec, MemoryIO(out), steps)
+    assert dec.repair_all(MemoryIO(out), backend="device") and np.array_equal(out, data)
+    assert tcache.has_device_plans(dec.P.Kp)  # decoder_plan built them
 
 
 def test_host_zeros_on_the_cpu():
@@ -292,21 +345,12 @@ def test_slabs_are_freed_once_no_block_holds_them(how, monkeypatch):
     assert list(dec._slabs) == [2] and dec._block(2).D[1].any()
 
 
-@pytest.mark.cuda
-def test_pinned_ingestion_and_no_pageable_copy_on_card():
-    """On the card every ingestion matrix is pinned, and a warm device decode
-    (K = 1000, 8 blocks) copies nothing from or into pageable memory and
-    restores the object.  The slabs die with their decoder, and the next
-    decoder of the size takes them back from PyTorch's host cache: it pins
-    nothing new."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card: pytest -m cuda)")
-    from torch.profiler import ProfilerActivity, profile
-
+def _card_object(K=1000, T=1280, Z=8, seed=5):
+    """(data, encoder of the card, deliveries, feed): Z blocks at 6% loss and
+    50 repair symbols more than the gaps; feed(dec) ingests them."""
     from nanorq_tpu_torch.codec.api import Encoder
 
-    K, T, Z = 1000, 1280, 8
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
     data = rng.integers(0, 256, K * T * Z, dtype=np.uint8)
     enc = Encoder(data.size, T, Al=8, Z=Z, device="cuda")
     sends = []
@@ -316,31 +360,133 @@ def test_pinned_ingestion_and_no_pageable_copy_on_card():
         sends.append((sbn, np.setdiff1d(np.arange(K), gaps), rep, enc.encode_batch(sbn, rep, MemoryIO(data))))
     rows = data.reshape(Z * K, T)
 
-    def decode():
+    def decoder():
         dec = Decoder(enc.oti_common(), enc.oti_scheme_specific(), device="cuda")
         out = np.zeros(data.size, np.uint8)
         io = MemoryIO(out)
         for sbn, keep, rep, pl in sends:
             dec.add_symbols(rows[sbn * K + keep], [make_tag(sbn, int(e)) for e in keep], io)
             dec.add_symbols(pl, [make_tag(sbn, int(e)) for e in rep], io)
-        assert all(torch.from_numpy(dec._block(s).D).is_pinned() for s in range(Z))
+        return dec, io, out
+
+    return data, enc, decoder
+
+
+def _copies(prof) -> list:
+    return [e.key for e in prof.key_averages() if e.key.startswith("Memcpy")]
+
+
+def _allocated() -> int:
+    """What PyTorch's pinned host cache holds (0 where this torch has no count)."""
+    if not hasattr(torch.cuda, "host_memory_stats"):
+        return 0
+    return torch.cuda.host_memory_stats()["allocated_bytes.current"]
+
+
+@pytest.mark.cuda
+def test_pinned_ingestion_and_no_pageable_copy_on_card(monkeypatch):
+    """On the card a decoder of a K' whose device plans were built (the device
+    arm read a decoder of K' before) has every ingestion matrix pinned from the start,
+    and a warm device decode (K = 1000, 8 blocks) copies nothing from or into
+    pageable memory and restores the object.  The slabs die with their
+    decoder, and the next decoder of the size takes them back from PyTorch's
+    host cache: it pins nothing new."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m cuda)")
+    from torch.profiler import ProfilerActivity, profile
+
+    from nanorq_tpu_torch.codec.api import auto_arm
+
+    monkeypatch.delenv("NANORQ_DECODE_BACKEND", raising=False)
+    data, enc, decoder = _card_object()
+    Z = enc.num_blocks
+
+    def decode(pinned: bool):
+        dec, io, out = decoder()
+        assert [torch.from_numpy(dec._block(s).D).is_pinned() for s in range(Z)] == [pinned] * Z
         return dec, io, out
 
     tcache.clear_decoder_cache()
-    dec, io, out = decode()
+    dec, io, out = decode(auto_arm(enc.P.Kp, False) == "device")
     assert dec.repair_all(io, backend="device") and np.array_equal(out, data)  # cold: plans cached
-    dec, io, out = decode()
+    assert tcache.has_device_plans(enc.P.Kp)
+    dec, io, out = decode(True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         assert dec.repair_all(io, backend="device")
     assert np.array_equal(out, data)
-    copies = [e.key for e in prof.key_averages() if e.key.startswith("Memcpy")]
+    copies = _copies(prof)
     assert copies and not [k for k in copies if "Pageable" in k], copies
     refs = [weakref.ref(s) for s in dec._slabs.values()]
     del dec, io
     gc.collect()
     assert refs and all(r() is None for r in refs)
     if hasattr(torch.cuda, "host_memory_stats"):
-        held = torch.cuda.host_memory_stats()["allocated_bytes.current"]
-        dec, io, out = decode()
-        assert torch.cuda.host_memory_stats()["allocated_bytes.current"] == held
+        held = _allocated()
+        dec, io, out = decode(True)
+        assert _allocated() == held
+
+
+@pytest.mark.cuda
+def test_host_routed_decoder_pins_nothing_on_card(monkeypatch):
+    """A fresh process's decoder at K = 1000, which "auto" sends to a host arm
+    cold: its slabs are pageable `HostSlab`s and stay so through the
+    decode, `ingest_bytes()` counts nothing pinned, and once it dies neither
+    PyTorch's host cache nor the registered pages hold anything of it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m cuda)")
+    from nanorq_tpu_torch.codec.api import auto_arm
+    from nanorq_tpu_torch.utils import stats
+
+    monkeypatch.delenv("NANORQ_DECODE_BACKEND", raising=False)
+    data, enc, decoder = _card_object(seed=6)
+    arm = auto_arm(enc.P.Kp, False)
+    assert arm in ("host", "res_host")
+    tcache.clear_decoder_cache()
+    held, registered = _allocated(), tmesh.HostSlab.registered
+    dec, io, out = decoder()
+    assert not dec._pin and all(tmesh.slab_of(s) is not None for s in dec._slabs.values())
+    assert dec.ingest_bytes()[1] == 0
+    before = stats.snapshot()["counters"].get(f"repair_{arm}_blocks", 0)
+    assert dec.repair_all(io) and np.array_equal(out, data)
+    assert stats.snapshot()["counters"][f"repair_{arm}_blocks"] - before == enc.num_blocks
+    assert dec.ingest_bytes()[1] == 0 and tmesh.HostSlab.registered == registered
+    del dec, io
+    gc.collect()
+    assert _allocated() == held and tmesh.HostSlab.registered == registered
+
+
+@pytest.mark.cuda
+def test_cold_device_decode_pins_in_place_and_unpins_on_card(monkeypatch):
+    """A decoder built with no device plan of its K' (pageable slabs) that the
+    device arm reads anyway (backend "device", cold): its upload page-locks
+    each slab in place, copies nothing through pageable memory and restores
+    the object; `ingest_bytes` counts the pages; once the decoder dies the
+    pages are unregistered and PyTorch's host cache holds no more than
+    before (the staging buffers of a first such decode stay cached)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m cuda)")
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.delenv("NANORQ_DECODE_BACKEND", raising=False)
+    data, enc, decoder = _card_object(seed=7)
+    registered = tmesh.HostSlab.registered
+    for turn in range(2):  # the first decode leaves its staging in the host cache
+        tcache.clear_decoder_cache()
+        held = _allocated()
+        dec, io, out = decoder()
+        assert not dec._pin and dec.ingest_bytes()[1] == 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            assert dec.repair_all(io, backend="device")
+        assert np.array_equal(out, data)
+        copies = _copies(prof)
+        assert copies and not [k for k in copies if "Pageable" in k], copies
+        slabs = [tmesh.slab_of(s) for s in dec._slabs.values()]
+        assert all(s.pinned_on is not None for s in slabs)
+        assert dec.ingest_bytes()[1] == sum(s.nbytes for s in slabs) == tmesh.HostSlab.registered - registered
+        del dec, io, slabs
+        gc.collect()
+        assert tmesh.HostSlab.registered == registered
+        if turn:
+            assert _allocated() == held

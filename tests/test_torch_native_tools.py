@@ -72,6 +72,7 @@ def test_hostarm_prof_device_arm_and_first_decoder():
         assert ln["arm"] == "device" and ln["plan"] == "dense-W"
         assert ln["ingest_first_ms"] > 0 and ln["decode_first_ms"] > 0 and ln["host_memory_kept"] is None
         assert ln["ingest_bytes"] == ln["pinned_bytes"] == 2 * ln["K"] * 16  # both blocks' rows
+        assert ln["registered_kept"] == 0  # nothing is page-locked on the CPU
         for state in ("cold", "warm"):
             run = ln[state]
             assert set(run) == set(hostarm_prof.COLUMNS["device"]) and run["ingest_ms"] > 0

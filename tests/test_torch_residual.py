@@ -97,11 +97,13 @@ def test_arms_equal_jax_and_source(backend, case):
         assert set(moved) == {"repair_res_host_blocks"}
 
 
-def test_f1_warm_auto_runs_on_the_device():
+@pytest.mark.parametrize("K", [300, 500])
+def test_f1_warm_auto_runs_on_the_device(K):
     """F1: after a device decode has cached the patterns' plans, "auto" sends
-    every block to the device arm and none to a host arm (K' = 511: above the
-    port's warm threshold, `api._RES_HOST_WARM_MAX`)."""
-    data, oti, pk = _packets(500, nb=3, seed=5)
+    every block to the device arm and none to a host arm (K' = 301 and 511:
+    above the port's warm threshold, `api._RES_HOST_WARM_MAX`; cold, both
+    go to "res_host")."""
+    data, oti, pk = _packets(K, nb=3, seed=5)
     tcache.clear_decoder_cache()
     before = _counts()
     _decode(Decoder(*oti, device="cpu"), data, pk, backend="auto")  # cold: K' <= 560, res_host
@@ -114,14 +116,15 @@ def test_f1_warm_auto_runs_on_the_device():
     assert _moved(before) == {"repair_device_blocks": 3}
 
 
-@pytest.mark.parametrize("K,cold,warm", [(100, "res_host", "res_host"), (400, "res_host", "res_host"),
-                                         (500, "res_host", "device"), (700, "host", "device")])
+@pytest.mark.parametrize("K,cold,warm", [(100, "res_host", "res_host"), (200, "res_host", "res_host"),
+                                         (300, "res_host", "device"), (500, "res_host", "device"),
+                                         (700, "host", "device")])
 def test_auto_rule_routes_by_kp(K, cold, warm):
-    """The port's "auto" rule (set from the H100 host's bench, a deliberate
-    difference from the JAX package): cold patterns on "res_host" up to
-    K' = 560 and on "host" above; warm ones (device plans cached) on
-    "res_host" up to K' = 440 and on the device above.  K' = 101, 405, 511
-    and 703."""
+    """The port's "auto" rule (set from the H100 host's bench medians, a
+    deliberate difference from the JAX package): cold patterns on
+    "res_host" up to K' = 560 and on "host" above; warm ones (device plans
+    cached) on "res_host" up to K' = 250 and on the device above.  K' =
+    101, 200, 301, 511 and 703: both sides of each boundary."""
     data, oti, pk = _packets(K, nb=2, seed=K)
     tcache.clear_decoder_cache()
     for state, arm in (("cold", cold), ("warm", warm)):
@@ -130,6 +133,37 @@ def test_auto_rule_routes_by_kp(K, cold, warm):
         before = _counts()
         assert np.array_equal(_decode(Decoder(*oti, device="cpu"), data, pk, backend="auto"), data)
         assert _moved(before) == {f"repair_{arm}_blocks": 2}
+
+
+@pytest.mark.parametrize("kind", ["dense", "structured"])
+def test_auto_rule_routes_cold_plans_by_kind(kind, monkeypatch):
+    """Above K' = 560 the cold rule goes by the kind of plan a pattern will
+    get: dense-W up to `cache.WPATH_MAX_KP`, structured above, read when the
+    rule runs, so structured plans are forced at K' = 703 by lowering it as
+    `parallel/_dryrun.py` does.  Both kinds go to "host" cold (the H100
+    host's medians: `host` ahead of `device`, or within their spreads, at K
+    = 1000 ... 50000); warm, to the device."""
+    from nanorq_tpu_torch.codec import api
+
+    if kind == "structured":
+        monkeypatch.setattr(tcache, "WPATH_MAX_KP", 0)
+        monkeypatch.setattr(tcache, "WPATH_GF256_MAX_KP", 0)
+    data, oti, pk = _packets(700, nb=2, seed=12)
+    assert api.auto_arm(703, False) == "host" and api.auto_arm(703, True) == "device"
+    tcache.clear_decoder_cache()
+    before = _counts()
+    assert np.array_equal(_decode(Decoder(*oti, device="cpu"), data, pk, backend="auto"), data)
+    assert _moved(before) == {"repair_host_blocks": 2}
+    dec, out = Decoder(*oti, device="cpu"), np.zeros(data.size, np.uint8)
+    for sbn, esis, pl in pk:
+        dec.add_symbols(pl, [make_tag(sbn, int(e)) for e in esis], MemoryIO(out))
+    preps = [dec._repair_prepare(s) for s in range(2)]
+    assert dec.repair_all(MemoryIO(out), backend="device")  # caches every plan
+    assert {type(tcache.decoder_plan(dec.P, isis, ov)) for _, isis, ov in preps} == (
+        {tcache.WSchedule} if kind == "dense" else {tcache.DeviceSchedule})
+    before = _counts()
+    assert np.array_equal(_decode(Decoder(*oti, device="cpu"), data, pk, backend="auto"), data)
+    assert _moved(before) == {"repair_device_blocks": 2}
 
 
 @pytest.mark.parametrize("K", [100, 1000])
