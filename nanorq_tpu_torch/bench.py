@@ -53,10 +53,10 @@ Cells per K:
                  the timed rounds (into its ingestion slabs);
                  `e2e_ingest_warm_ms` of the warm rounds
 Each decode_e2e arm is read in R = max(3, min(--iters, 5)) rounds (5 at the
-default --iters; the deadline may cut a call to 3 rounds, never fewer): its
-value is the MEDIAN round, and `e2e_<arm>[_warm]_spread` beside it is (the
-slowest round - the fastest) / the median (`e2e_auto_spread` for the cold
-`decode_e2e`).  `e2e_auto_ok` and `e2e_auto_warm_ok` compare medians.  Up
+default --iters; the deadline may cut a call to 3 rounds, never fewer; each
+round starts one arm later than the round before): its value is the MEDIAN
+round, and `e2e_<arm>[_warm]_spread` beside it is (the slowest round - the
+fastest) / the median (`e2e_auto_spread` for the cold `decode_e2e`).  `e2e_auto_ok` and `e2e_auto_warm_ok` compare medians.  Up
 to the bench of run G8 (PERF.md section 4) these cells were the BEST of 2-3
 rounds instead: a median is slower than a best round by about half the
 spread, so an older best-of-rounds figure is not comparable with a median.
@@ -81,8 +81,9 @@ the replay's program; `"timing": "events"`; on
 launch overheads (measured at start) is repeated with more calls, and the
 cell is null where that cannot be reached.  The end-to-end cells (encode_e2e,
 decode0, decode_e2e) are the host clock between two device synchronisations:
-encode_e2e and decode0 the best of their rounds, decode_e2e the median.  Rates are Gbps (8e-9 * bytes / s) under the JAX bench's
-key names, and `*_mbps` in BASELINE.md's unit, 8 * bytes / (2**20 * s).
+encode_e2e and decode0 the best of their rounds, decode_e2e the median.
+Rates are Gbps (8e-9 * bytes / s) under the JAX bench's key names, and
+`*_mbps` in BASELINE.md's unit, 8 * bytes / (2**20 * s).
 
 Output: one JSON line per K on stdout as soon as that K is done, Ks in the
 order 1000, 50000, 100, 500, 5000, 10000, each with the card's name and power
@@ -318,9 +319,11 @@ def bench_decode_e2e(K, T, nblocks, rounds, dev, clock: Clock, arms=("auto",), m
     fills them, and each timed round finds the plans and memos of the round
     before.  The output is compared with the object each time.  Arms are
     interleaved round-robin so that drift of the shared host's speed falls on
-    every arm alike; `rounds` rounds, fewer where the deadline passes, but
-    never fewer than 3.  The arm "device_mesh" is "device" over `mesh`.
-    Returns ({arm: the median round's seconds}, {arm: (slowest - fastest) /
+    every arm alike, each round starting one arm later than the one before,
+    so that no arm always follows the same one (a host arm's native threads
+    can still hold the cores as the next arm starts); `rounds` rounds, fewer
+    where the deadline passes, but never fewer than 3.  The arm
+    "device_mesh" is "device" over `mesh`.  Returns ({arm: the median round's seconds}, {arm: (slowest - fastest) /
     median}, the median ms of a fresh decoder's ingestion over the timed
     rounds)."""
     data, enc, per_block = e2e_object(K, T, nblocks, dev)
@@ -360,7 +363,7 @@ def bench_decode_e2e(K, T, nblocks, rounds, dev, clock: Clock, arms=("auto",), m
         ingest.clear()
     runs = {arm: [] for arm in arms}
     for rnd in range(max(3, rounds)):
-        for arm in arms:
+        for arm in arms[rnd % len(arms):] + arms[: rnd % len(arms)]:  # each round starts one arm later
             runs[arm].append(once(arm))
         if rnd >= 2 and clock.expired():  # every arm has its three rounds at least
             break

@@ -22,17 +22,17 @@ the port's torch code on the explicit `device` the object was built with:
     (ops/wpath.res_apply_batch).  Raises when the native factorization is
     missing, where the JAX package quietly reroutes to the host;
   - "res_host" and "host": the native CPU arms, with no device half;
-  - "auto": the port's own rule, set from the H100 host's numbers (`python
-    -m nanorq_tpu_torch.bench --arms`, every arm cold and warm at K = 100
-    ... 50000 and at K' = 200 ... 800 between; PERF.md, sections 4 and 6).
-    Cold patterns go to "res_host" up to K' = NANORQ_RES_HOST_MAX (560, the
-    measured crossover), else to "host".  Warm patterns (a device plan
-    cached) go to the device from K' = 441 up, and below it to "res_host",
-    which beat the warm device arm there.  The JAX package sends every warm
-    pattern to the device and cold ones to "res_host" up to K' = 256, a
-    crossover measured on another host; on the H100 host "res_host" beat
-    the warm device arm up to K' = 405 and every cold arm but "res" up to
-    511.
+  - "auto": the port's own rule (`auto_arm`), set from the medians of the
+    H100 host's bench (`python -m nanorq_tpu_torch.bench --arms`, every arm
+    cold and warm in 5 rounds at K = 100 ... 50000; PERF.md, sections 4 and
+    6).  Cold patterns go to "res_host" up to K' = NANORQ_RES_HOST_MAX (560),
+    else to "host", whether the pattern's plan would be dense-W or
+    structured: the cold device arm never beat "host" by more than the two
+    arms' spreads.  Warm patterns (a device plan cached) go to the device
+    from K' = 251 up, and below it to "res_host", which matched or beat the
+    warm device arm there.  The JAX package sends every warm pattern to the
+    device and cold ones to "res_host" up to K' = 256, a crossover measured
+    on another host.
 
 `mesh=` (a `parallel.mesh.Mesh`) splits the device work over the mesh's
 lanes, each a device with a stream of its own: the encoder's replay and LT
@@ -81,18 +81,22 @@ SYM_ERR = -1
 _ZERO_ROWS: dict[int, np.ndarray] = {}
 
 
-# K' at or below which the auto decode policy prefers the solve-free host
-# residual arm over the patched-system host solve for cold patterns.  The
-# crossover on the H100 host (bench --arms, cold, Mb/s res_host / host):
-# 10631 / 7635 at K'=301, 7736 / 6653 at 511, 5924 / 6725 at 600, 3437 /
-# 9750 at 1002 (PERF.md, section 6); the JAX package's 256 was measured on an
-# AVX-512 host.
+# K' at or below which "auto" sends a cold pattern to the solve-free host
+# residual arm.  The crossover on the H100 host (bench --arms, cold medians
+# of 5 rounds, Mb/s res_host / host, NVIDIA H100 80GB HBM3, 700 W): 11033 /
+# 9500 at K'=511, 4737 / 9630 at 1002 (PERF.md, section 4; between them, PR
+# 8's best rounds: 5924 / 6725 at 600); the JAX package's 256 was measured on
+# an AVX-512 host.
 _RES_HOST_MAX = int(os.environ.get("NANORQ_RES_HOST_MAX", "560"))
 # K' at or below which "auto" sends a warm pattern (its device plan cached)
-# to the host residual arm too: warm, res_host / device, 9341 / 7745 Mb/s at
-# K'=301, 9424 / 7962 at 405, 9043 / 12693 at 511 (PERF.md, section 6)
+# to the host residual arm too: warm medians, res_host / device, 17958 /
+# 16492 Mb/s at K'=200, 15798 / 22869 at 301 (PERF.md, section 4)
 _RES_HOST_WARM_MAX = 250
-# the cold arms above _RES_HOST_MAX, by the kind of plan a pattern gets
+# the cold arms above _RES_HOST_MAX, by the kind of plan a pattern gets.
+# Cold medians, host / device, Mb/s: dense-W 9630 / 5597 at K'=1002, 8596 /
+# 8288 at 5008, 7118 / 7052 at 10017; structured 6224 / 6047 at 20152, 5475
+# / 5729 at 30037, 4503 / 5533 at 50511, where the spreads were 46% / 41%
+# (PERF.md, section 4): the device never wins by more than the two spreads
 _COLD_DENSE_ARM = "host"
 _COLD_STRUCTURED_ARM = "host"
 
@@ -121,8 +125,8 @@ def _device_may_read(Kp: int) -> bool:
     default backend (env NANORQ_DECODE_BACKEND) "device" always, a host arm
     never; "auto" where its cold rule sends K' to the device, or where a
     device plan of K' was built since the decoder cache was last cleared
-    (the device arm has read a decoder of K', and "auto" sends a pattern met
-    again there).  A decoder that the device arm reads all the same
+    (the device arm has read decoders of K' in this process: the warm rule,
+    an explicit backend or a mesh).  A decoder that the device arm reads all the same
     (explicit backends, meshes, `repair_block`) has its slabs page-locked in
     place by the upload."""
     backend = os.environ.get("NANORQ_DECODE_BACKEND", "auto")

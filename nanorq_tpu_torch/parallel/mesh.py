@@ -25,6 +25,7 @@ and a failed pin, stream or launch raises where it happens.
 
 import contextlib
 import mmap
+import threading
 
 import numpy as np
 import torch
@@ -165,6 +166,7 @@ class HostSlab:
 
     __slots__ = ("_raw", "ptr", "nbytes", "shape", "pinned_on")
     registered = 0  # bytes of every live pinned slab
+    _count_lock = threading.RLock()  # a slab may die on any thread, inside a count on this one
 
     def __init__(self, shape: tuple):
         self.pinned_on = None
@@ -184,13 +186,15 @@ class HostSlab:
             if err:
                 raise RuntimeError(f"cudaHostRegister of {self.nbytes} bytes failed: cudaError {err}")
             self.pinned_on = device
-            HostSlab.registered += self.nbytes
+            with HostSlab._count_lock:
+                HostSlab.registered += self.nbytes
 
     def __del__(self, _sync=torch.cuda.synchronize, _cudart=torch.cuda.cudart):
         if self.pinned_on is not None:
             _sync(self.pinned_on)
             _cudart().cudaHostUnregister(self.ptr)
-            type(self).registered -= self.nbytes
+            with type(self)._count_lock:
+                type(self).registered -= self.nbytes
 
 
 def slab_of(a) -> HostSlab | None:

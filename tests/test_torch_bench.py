@@ -221,7 +221,7 @@ def test_auto_ok_decides_on_the_medians(monkeypatch):
     """A clock that returns fixed round times: "auto" has the fastest single
     round (1 s against host's 2 s) but a median of 5 s, so it is not within
     10% of the best arm; with the round times swapped it is.  The medians and
-    spreads are those of the rounds."""
+    spreads are those of the rounds, whichever arm a round starts with."""
     import torch
 
     def clock_of(times):
@@ -236,11 +236,12 @@ def test_auto_ok_decides_on_the_medians(monkeypatch):
 
     K, T, nb = 10, 16, 2
     rounds = [(1.0, 2.0), (5.0, 2.0), (5.0, 2.1), (6.0, 1.9), (5.0, 2.0)]  # (auto, host) per round
-    clock = clock_of([x for rnd in rounds for x in rnd])
+    # each round starts one arm later: auto first in rounds 0, 2, 4, host first in 1, 3
+    clock = clock_of([x for r, (a, h) in enumerate(rounds) for x in ((a, h) if r % 2 == 0 else (h, a))])
     secs, spread, _ = bench.bench_decode_e2e(K, T, nb, 5, torch.device("cpu"), clock, arms=("auto", "host"))
     assert secs == {"auto": 5.0, "host": 2.0}
     assert spread == pytest.approx({"auto": (6.0 - 1.0) / 5.0, "host": (2.1 - 1.9) / 2.0})
     assert not bench._auto_ok(K, "cold", secs, K * T * nb)
-    clock = clock_of([x for a, h in rounds for x in (h, a)])
+    clock = clock_of([x for r, (a, h) in enumerate(rounds) for x in ((h, a) if r % 2 == 0 else (a, h))])
     secs, _, _ = bench.bench_decode_e2e(K, T, nb, 5, torch.device("cpu"), clock, arms=("auto", "host"))
     assert secs == {"auto": 2.0, "host": 5.0} and bench._auto_ok(K, "cold", secs, K * T * nb)
