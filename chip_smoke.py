@@ -25,10 +25,14 @@ Phases, each printing its own lines and its seconds:
    raise, a ragged width makes the probes raise;
 3. encode: an object of Z=200 blocks x K=1000 x T=1280 through the port's
    Encoder and codec.batch (generate + 200 repair symbols per block), the
-   object loaded into pinned memory (`load_s`) and its K live rows uploaded
-   in one copy on the default path; cold, second and warm: the replay is
-   the encoder schedule's program (ops/program.py), which the cold run
-   (eager) leaves uncaptured, the second captures and the warm replays; the
+   object loaded into pinned memory (`load_s`); the default path cuts it
+   into width slices on lanes of the card (`parallel.mesh.default_mesh`:
+   S = `slice_count(Z*T, T, K)` slices, each its own stream), each slice's K
+   live rows uploaded by one pitched copy out of the object
+   (`kernels.copy2d`, counted in `kernels.COPIES`: S an encode); cold,
+   second and warm: each slice's replay is the encoder schedule's program
+   (ops/program.py), which the cold run (eager) leaves uncaptured, the
+   second captures and the warm replays; 17 K1 launches a slice; the
    device memory allocated after the phase and at its peak;
 4. decode: 6% source loss + 5% repair overhead per block, recovered by
    Decoder.repair_all(backend="device") (at K=1000 every plan is a dense-W
@@ -45,13 +49,17 @@ Phases, each printing its own lines and its seconds:
 5. checks and times: the systematic property on every block, one block
    against the numpy oracle (nanorq_tpu_torch.host), the decoded bytes, the
    kernel launch counts of the main path (phases 3-4: 17 K1 launches per
-   encode), no out-of-range gather index in it, and the encode/decode wall
-   times; then one warm encode and one warm device decode under
+   encode slice), no out-of-range gather index in it, and the encode/decode
+   wall times; then one warm encode and one warm device decode under
    torch.profiler: the device time of each kernel and copy, summed over the
-   run, beside its wall time, and the copies by kind (and the decode's
-   ingestion and host staging ms); the encode must show 17
-   K1 kernels and no torch.cat copy, and neither run may copy from or into
-   pageable memory;
+   run, beside its wall time (`busy` = that sum over the wall: on the sliced
+   encode the slices' work overlaps, so it may pass 1; `busy_union` counts
+   the time the card was doing anything once), and the copies by kind (and
+   the decode's ingestion and host staging ms); the encode's host-to-device
+   copies that ran while a kernel ran (`htod_overlap_ms`,
+   `tools/pipe_sweep.overlap`); the encode must show 17 K1 kernels a slice
+   and no torch.cat copy, and neither run may copy from or into pageable
+   memory;
 6. probe path: nanorq_tpu_torch.tools.gather_probe over both probe tables,
    every line bit-exact, with its launch counts;
 7. decode arms: the phase-4 object and losses through repair_all with
@@ -73,21 +81,26 @@ Phases, each printing its own lines and its seconds:
    pinned staging) -- over `make_mesh()` (every visible card, a lane each) and
    over 1, 2 and 4 lanes dealt round-robin over the cards (on one card: lanes
    of cuda:0).  `batch.generate(mesh=)` + `batch.repair_symbols(mesh=)` four
-   times in turn with the unsharded path (`mesh=None`), host clock between
+   times in turn with the default path (`mesh=None`: the slices of phase
+   3) and the unsliced `1`-lane mesh, host clock between
    synchronisations, the first two rounds of a mesh apart (the first pins
    its staging, the second captures its lanes' programs),
    every result held bit for bit against phase 3's repair symbols; the upload
-   alone: the default path's one copy of the live rows, a pageable copy of
-   every row, 4 lanes with every row and with the K live rows, the host's
-   staging copy into pinned memory and the copy from pinned memory to the
-   card; the four sharded calls of one warm encode on the default path's
-   lane, on 1 and on 4 lanes with a wait after each (where a warm encode's
-   time goes); `repair_all(backend="device", mesh=)` cold
+   alone: one lane's copy of the live rows (contiguous, the unsliced path),
+   the default path's slices (a pitched copy each), a pageable copy of
+   every row, 4 lanes with every row (staged) and with the K live rows (a
+   pitched copy each), the host's staging copy into pinned memory and the
+   copy from pinned memory to the card; the four sharded calls of one warm
+   encode on the default path's slices, on 1 and on 4 lanes with a wait
+   after each (where a warm encode's time goes); `repair_all(backend="device", mesh=)` cold
    on `make_mesh()`, then warm with `mesh=None` and 4 lanes in turn, twice,
    every run restoring the object; `parallel._dryrun.run(4, device)` in both
    modes; no gather index flagged on any card.  One `[mesh]` line holds the
    times and the device memory (as in phase 3) beside the card's name and
-   power limit;
+   power limit; then the `[pipeline]` line: the slices and their streams,
+   the warm encode sliced (`none`) and unsliced (`1`) in ms, the phase 5
+   profile's overlapped host-to-device ms, phase 3's programs and peak
+   memory, the card's name and power limit;
 11. sweeps: each retuning sweep of nanorq_tpu_torch/tools at one small point
    (K = 1000, 4 blocks): cb_probe over two chunk sizes, C bit-identical;
    slotfill_probe; bsweep; wb_probe, every form exact; replay_stage_prof;
@@ -721,21 +734,26 @@ def phase_mesh(enc, batch, data, reps, dev, deliveries, smi: str) -> dict:
     if flagged():
         raise AssertionError("a gather of the mesh encode met an index outside its source")
 
-    # the upload alone: the default path's one copy of the K live rows out of
-    # the pinned object; the copy of every row of a pageable D (what the
+    # the upload alone: one lane's copy of the K live rows out of the pinned
+    # object (contiguous: the unsliced path's); the default path's slices,
+    # a pitched copy each; the copy of every row of a pageable D (what the
     # default path did before it staged through the lanes); 4 lanes, every
-    # row and the K live ones; then the two halves of a staged lane's
-    # upload apart, the host's staging copy of the live rows into pinned
-    # memory and the copy from there to the card; each twice, in turn
+    # row of a pageable D (staged) and the K live ones of the pinned object
+    # (a pitched copy each); then the two halves of a staged lane's upload
+    # apart, the host's staging copy of the live rows into pinned memory and
+    # the copy from there to the card; each twice, in turn
     M_pad = tcache.encoder_schedule(enc.P.Kp).M_pad
     paged = np.zeros((M_pad, Z * T), np.uint8)
     paged[:K] = batch.D[:K]
     pinned = torch.empty((K, Z * T), dtype=torch.uint8, pin_memory=True)
     local = lanes.local_mesh(dev)
+    sliced = lanes.default_mesh(dev, Z * T, T, K)
     up_s = {}
     for _ in range(2):
         for name, fn in (("default_live_rows", lambda: lanes.shard_width(batch.D, local, block=T, live_rows=K,
                                                                          rows=M_pad)),
+                         ("sliced_live_rows", lambda: lanes.shard_width(batch.D, sliced, block=T, live_rows=K,
+                                                                        rows=M_pad)),
                          ("pageable_all_rows", lambda: torch.from_numpy(paged).to(dev)),
                          ("lanes4_all_rows", lambda: lanes.shard_width(paged, meshes["4"], block=T)),
                          ("lanes4_live_rows", lambda: lanes.shard_width(batch.D, meshes["4"], block=T, live_rows=K,
@@ -750,8 +768,9 @@ def phase_mesh(enc, batch, data, reps, dev, deliveries, smi: str) -> dict:
             del x
     del pinned, paged
 
-    # where a warm encode's time goes, on 1 and on 4 lanes: its four sharded
-    # calls with a wait after each (so nothing overlaps), twice
+    # where a warm encode's time goes, on the default path's slices, on 1
+    # and on 4 lanes: its four sharded calls with a wait after each (so
+    # nothing overlaps), twice
     ds = tcache.encoder_schedule(enc.P.Kp)
     isis = np.arange(enc.P.Kp, enc.P.Kp + N_REPAIR, dtype=np.uint32)
     step_ms = {}
@@ -765,7 +784,7 @@ def phase_mesh(enc, batch, data, reps, dev, deliveries, smi: str) -> dict:
         return got
 
     for _ in range(2):
-        for name, mesh in (("none", local), ("1", meshes["1"]), ("4", meshes["4"])):
+        for name, mesh in (("none", sliced), ("1", meshes["1"]), ("4", meshes["4"])):
             Dsh = timed(f"{name}_shard_width", lambda: lanes.shard_width(batch.D, mesh, block=T, live_rows=K,
                                                                          rows=M_pad))
             C = timed(f"{name}_replay", lambda: lanes.replay_sharded(ds, Dsh, mesh))
@@ -788,7 +807,7 @@ def phase_mesh(enc, batch, data, reps, dev, deliveries, smi: str) -> dict:
         _dryrun.run(4, dev, mode)  # checks its own gathers' flags
     dry_s = time.perf_counter() - t0
 
-    fmt = lambda xs: [round(x, 4) for x in xs]  # noqa: E731
+    fmt = lambda xs: [round(x, 6) for x in xs]  # noqa: E731
     line = {"card": smi, "count": n, "bytes": int(data.size),
             "encode_s": {"none": fmt(enc_s["none"]),
                          **{f"{name}_first": fmt(enc_s[name][:2]) for name in meshes},
@@ -1017,17 +1036,22 @@ def _short(name: str) -> str:
     return name[5:] if name.startswith("void ") else name
 
 
-def phase_profile(enc, batch, data, reps, dev, deliveries) -> dict:
+def phase_profile(enc, batch, data, reps, dev, deliveries, slices: int) -> dict:
     """One warm encode and one warm device decode (repair_all alone, as
     phase 4 times it) under torch.profiler, device activity only: per run,
     its wall seconds, the summed device time, per kernel or copy its ms and
-    count, and the copies by kind.  Neither may copy from or into pageable
-    memory ("Memcpy HtoD (Pageable -> Device)", "Memcpy DtoH (Device ->
-    Pageable)"): the default path stages in pinned memory."""
+    count, and the copies by kind; `busy` is that sum over the wall, which
+    the encode's `slices` overlapping slices may take past 1, `busy_union`
+    the share of the wall in which the card did anything.  The encode's
+    host-to-device copies, and the part of them that ran while a kernel
+    ran (`tools/pipe_sweep.overlap`).  Neither run may copy from or into
+    pageable memory ("Memcpy HtoD (Pageable -> Device)", "Memcpy DtoH
+    (Device -> Pageable)"): the default path stages in pinned memory."""
     from torch.profiler import ProfilerActivity, profile
 
     from nanorq_tpu_torch.codec import batch as tbatch
     from nanorq_tpu_torch.tools import gather_launches
+    from nanorq_tpu_torch.tools.pipe_sweep import overlap
 
     report = {}
     for name in ("encode", "decode"):
@@ -1059,9 +1083,12 @@ def phase_profile(enc, batch, data, reps, dev, deliveries) -> dict:
         device_ms = sum(ms for ms, _ in per.values())
         top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
         k1 = [v for k, v in per.items() if "gather_xor_kernel" in k]
-        report[name] = {"wall_s": wall, "device_ms": device_ms}
+        spans = overlap(prof.events())
+        report[name] = {"wall_s": wall, "device_ms": device_ms, **spans}
         _say("profile", run=name, wall_s=f"{wall:.4f}", device_ms=f"{device_ms:.3f}",
-             busy=f"{device_ms / 1e3 / wall:.3f}", k1_ms=f"{sum(ms for ms, _ in k1):.4f}",
+             busy=f"{device_ms / 1e3 / wall:.3f}", busy_union=f"{spans['device_ms'] / 1e3 / wall:.3f}",
+             htod_ms=f"{spans['htod_ms']:.4f}", htod_overlap_ms=f"{spans['htod_overlap_ms']:.4f}",
+             k1_ms=f"{sum(ms for ms, _ in k1):.4f}",
              k1_launches=sum(c for _, c in k1), top=json.dumps({k: [round(ms, 4), n] for k, (ms, n) in top}),
              copies=json.dumps({k: [round(ms, 4), n] for k, (ms, n) in sorted(copies.items())}))
         pageable = [k for k in copies if "Pageable" in k]
@@ -1069,9 +1096,9 @@ def phase_profile(enc, batch, data, reps, dev, deliveries) -> dict:
             raise AssertionError(f"the profiled warm {name} copied through pageable memory: {pageable}")
         if name == "encode":
             cats = [k for k in per if "CatArray" in k]
-            if sum(c for _, c in k1) != gather_launches.ENCODE_LAUNCHES or cats:
-                raise AssertionError(f"the profiled encode ran {sum(c for _, c in k1)} K1 kernels "
-                                     f"(expected {gather_launches.ENCODE_LAUNCHES}) and the copies {cats}")
+            if sum(c for _, c in k1) != slices * gather_launches.ENCODE_LAUNCHES or cats:
+                raise AssertionError(f"the profiled encode ran {sum(c for _, c in k1)} K1 kernels (expected "
+                                     f"{slices} x {gather_launches.ENCODE_LAUNCHES}) and the copies {cats}")
     return report
 
 
@@ -1082,6 +1109,8 @@ def phase_checks(enc, batch, reps, data, outs, dev) -> tuple[int, float]:
     from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
 
     P, C = enc.P, batch.C
+    if not isinstance(C, torch.Tensor):  # the default path's slices: joined for the checks
+        C = C.gather(dev)
     sys_sym = lt_combine(C, lt_plan(np.arange(P.Kp, dtype=np.uint32), P, dev))
     D_dev = torch.from_numpy(batch.D).to(dev)
     if not torch.equal(sys_sym[:K], D_dev[:K]) or bool(sys_sym[K : P.Kp].any()):
@@ -1103,6 +1132,7 @@ def phase_checks(enc, batch, reps, data, outs, dev) -> tuple[int, float]:
     for name, out in zip(("cold", "warm"), outs):
         if not np.array_equal(out, data):
             raise AssertionError(f"{name} decode did not restore the object")
+    del C
     return nb, oracle_s
 
 
@@ -1116,6 +1146,7 @@ def main() -> None:
     from nanorq_tpu_torch.codec.api import Encoder
     from nanorq_tpu_torch.host import MemoryIO
     from nanorq_tpu_torch.ops import kernels
+    from nanorq_tpu_torch.parallel import mesh as lanes
     from nanorq_tpu_torch.tools import gather_launches
 
     F = Z * K * T
@@ -1135,9 +1166,15 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()  # the main path starts here
     reps, enc_s = phase_encode(enc, batch, dev)  # phase 3
-    enc_launches = dict(kernels.LAUNCHES)
+    enc_launches, enc_copies = dict(kernels.LAUNCHES), dict(kernels.COPIES)
+    enc_mem = _mem()
+    sliced = lanes.default_mesh(dev, WIDE, T, K)  # the lanes phase 3 ran on
+    slices = sliced.size
     _say("encode", blocks=Z, K=K, T=T, bytes=F, load_s=f"{load_s:.3f}", cold_s=f"{enc_s[0]:.4f}",
-         second_s=f"{enc_s[1]:.4f}", warm_s=f"{enc_s[2]:.4f}", launches=json.dumps(enc_launches), mem=_mem())
+         second_s=f"{enc_s[1]:.4f}", warm_s=f"{enc_s[2]:.4f}", slices=slices, launches=json.dumps(enc_launches),
+         copies=json.dumps(enc_copies), mem=enc_mem)
+    if slices > 1 and not (isinstance(batch.C, lanes.Sharded) and batch.C.mesh is sliced):
+        raise AssertionError("the sliced encode left batch.C off its slices")
     deliveries = _deliveries(SEED + 1)
     torch.cuda.reset_peak_memory_stats()
     outs, dec_s, kinds, ngaps, dec_gather = phase_decode(enc, data, reps, dev, deliveries)  # phase 4
@@ -1145,9 +1182,12 @@ def main() -> None:
     dec_mem = _mem()
     if kernels.take_index_errors(dev):
         raise AssertionError("a gather of the main path met an index outside its source")
-    if enc_launches["gather_xor"] != ENCODE_RUNS * gather_launches.ENCODE_LAUNCHES:
+    if enc_launches["gather_xor"] != ENCODE_RUNS * slices * gather_launches.ENCODE_LAUNCHES:
         raise AssertionError(f"phase 3's encodes ran {enc_launches['gather_xor']} K1 launches, "
-                             f"expected {ENCODE_RUNS} x {gather_launches.ENCODE_LAUNCHES}")
+                             f"expected {ENCODE_RUNS} x {slices} slices x {gather_launches.ENCODE_LAUNCHES}")
+    if enc_copies["copy2d"] != (ENCODE_RUNS * slices if slices > 1 else 0):
+        raise AssertionError(f"phase 3's encodes issued {enc_copies['copy2d']} pitched copies, "
+                             f"expected one a slice ({slices} slices, {ENCODE_RUNS} encodes)")
     dec_launches = {n: main_launches[n] - enc_launches[n] for n in main_launches}
     _k1_line("decode-place", gather_launches.measure(dec_gather[0], 20))
     _k1_line("decode", gather_launches.measure(dec_gather[1], 20))
@@ -1167,7 +1207,7 @@ def main() -> None:
     _say("times", card=json.dumps(smi), encode_cold_mbps=_mbps(F, enc_s[0]), encode_warm_mbps=_mbps(F, enc_s[-1]),
          decode_cold_mbps=_mbps(F, dec_s[0]), decode_warm_mbps=_mbps(F, dec_s[1]),
          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / (1 << 30):.2f}")
-    phase_profile(enc, batch, data, reps, dev, deliveries)
+    profiled = phase_profile(enc, batch, data, reps, dev, deliveries, slices)
     _say("phase", name="checks", seconds=f"{time.perf_counter() - t0:.2f}")
     batch.C = None  # the host matrix stays for phase 10
 
@@ -1232,6 +1272,17 @@ def main() -> None:
          decode_4_warm_mbps=_mbps(F, min(mesh_line["decode_s"]["4_warm"])),
          seconds=f"{time.perf_counter() - t0:.2f}")
     del batch
+    mem3 = json.loads(enc_mem)
+    print("[pipeline] " + json.dumps({
+        "slices": slices, "streams": [lane.queue().cuda_stream for lane in sliced.lanes],
+        "slice_bytes": lanes.SLICE_BYTES, "width": WIDE,
+        "warm_encode_ms": {"sliced": [round(1e3 * x, 3) for x in mesh_line["encode_s"]["none"]],
+                           "unsliced": [round(1e3 * x, 3) for x in mesh_line["encode_s"]["1_warm"]],
+                           "phase3_sliced": round(1e3 * enc_s[-1], 3)},
+        "htod_ms": round(profiled["encode"]["htod_ms"], 4),
+        "htod_overlap_ms": round(profiled["encode"]["htod_overlap_ms"], 4),
+        "programs_MB": mem3["programs_MB"], "peak_GiB": mem3["peak_GiB"], "allocated_GiB": mem3["allocated_GiB"],
+        "card": smi}), flush=True)
 
     t0 = time.perf_counter()
     kernels.reset_launches()  # the sweeps start here

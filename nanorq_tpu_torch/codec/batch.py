@@ -48,19 +48,23 @@ def load_object(enc: Encoder, io: IOContext, sbns=None) -> ObjectBatch:
 def generate(batch: ObjectBatch, device, mesh=None):
     """One structured replay for the whole object: batch.C [L, Z*T] on
     `device`.  Only the payload rows go up (the rows past the largest K are
-    zero by construction and are zeroed on the device): with no mesh in one
-    copy on the device's current stream, straight out of a pinned D.  With
-    `mesh`, the width is split over its lanes on whole blocks where there are
-    enough of them, each lane uploads its columns and replays them on its own
-    stream, and batch.C stays sharded.  The JAX package pads the width to a
-    multiple of the device count first (`pad_width`: its shards must be
-    equal); lanes take unequal shards, so the object's matrix is not copied
-    to pad it."""
+    zero by construction and are zeroed on the device), straight out of a
+    pinned D.  With `mesh`, the width is split over its lanes on whole blocks
+    where there are enough of them, each lane uploads its columns and
+    replays them on its own stream, and batch.C stays sharded.  With no
+    mesh, the lanes are the default path's (`parallel.mesh.default_mesh`):
+    on a card a wide object runs as width slices on streams of the card,
+    every slice's upload issued before the first replay, and batch.C stays
+    sharded over them; else one lane on the device's current stream, and
+    batch.C is one tensor.  The JAX package pads the width to a multiple of
+    the device count first (`pad_width`: its shards must be equal); lanes
+    take unequal shards, so the object's matrix is not copied to pad it."""
     ds = _cache.encoder_schedule(batch.enc.P.Kp)
-    on = lanes.local_mesh(device) if mesh is None else mesh
-    Dsh = lanes.shard_width(batch.D, on, block=batch.enc.symbol_size, live_rows=int(batch.Ks.max()), rows=ds.M_pad)
+    T, live = batch.enc.symbol_size, int(batch.Ks.max())
+    on = lanes.default_mesh(device, batch.D.shape[1], T, live) if mesh is None else mesh
+    Dsh = lanes.shard_width(batch.D, on, block=T, live_rows=live, rows=ds.M_pad)
     C = lanes.replay_sharded(ds, Dsh, on)
-    batch.C = C if mesh is not None else C.parts[0]
+    batch.C = C if mesh is not None or on.size > 1 else C.parts[0]
     return batch.C
 
 
@@ -76,8 +80,11 @@ def repair_symbols(batch: ObjectBatch, n_repair: int, device, mesh=None) -> dict
     Repair ISIs are K-independent (arange(K, K+n) + K'-K == arange(K', K'+n)
     for every block length), so one plan and one combine cover the object.
     With `mesh`, the combine runs on the lanes that hold the sharded batch.C
-    (the layout of generate(mesh=)).  A batch.C that does not go with `mesh`
-    is combined unsharded on its device, a sharded one gathered to `device`
+    (the layout of generate(mesh=)); with no mesh, on the default path's
+    slices where generate left batch.C over them.  Every lane's combine is
+    issued, then every lane's download, each on its lane's stream, and the
+    host waits once per stream.  A batch.C that does not go with `mesh` is
+    combined unsharded on its device, a sharded one gathered to `device`
     first."""
     if mesh is not None:
         lanes.check_mesh(mesh)
@@ -85,7 +92,8 @@ def repair_symbols(batch: ObjectBatch, n_repair: int, device, mesh=None) -> dict
         generate(batch, device, mesh=mesh)
     P = batch.enc.P
     isis = np.arange(P.Kp, P.Kp + n_repair, dtype=np.uint32)
-    if isinstance(batch.C, lanes.Sharded) and batch.C.mesh is not mesh:
+    if isinstance(batch.C, lanes.Sharded) and batch.C.mesh is not mesh and not (
+            mesh is None and lanes.is_sliced(batch.C.mesh)):
         batch.C = batch.C.gather(device)
     C = batch.C if isinstance(batch.C, lanes.Sharded) else lanes.whole(batch.C)
     return lanes.lt_sharded(C, isis, P, C.mesh).host_blocks(batch.enc.symbol_size, len(batch.sbns), n_repair)

@@ -73,9 +73,10 @@ def _bind(lib) -> None:
     lib.nrq_gather_db_tuned.argtypes = [vp, i64, i64, vp, i64, i64, i32, i64, i32, vp, vp, vp]
     lib.nrq_gather_stage_plan.argtypes = [i64, i64, i64, i32, i32, i32, ctypes.POINTER(i64)]
     lib.nrq_gather_db_plan.argtypes = [i64, i64, i64, i32, i32, i64, i32, ctypes.POINTER(i64)]
+    lib.nrq_copy2d.argtypes = [vp, i64, vp, i64, i64, i64, vp]
     for fn in (lib.nrq_gather_xor, lib.nrq_gf2_matmul, lib.nrq_gf256_m4r, lib.nrq_gf256_logexp,
                lib.nrq_gather_v1, lib.nrq_gather_v2, lib.nrq_gather_db, lib.nrq_gather_db_tuned,
-               lib.nrq_gather_stage_plan, lib.nrq_gather_db_plan):
+               lib.nrq_gather_stage_plan, lib.nrq_gather_db_plan, lib.nrq_copy2d):
         fn.restype = ctypes.c_int
 
 

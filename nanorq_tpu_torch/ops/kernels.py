@@ -1,5 +1,6 @@
 """Wrappers of the payload kernels (`csrc/*.cu`): K1-K3 and the three gather
-probes (`csrc/gather_probe.cu`).
+probes (`csrc/gather_probe.cu`); and of the pitched upload (`copy2d`,
+`csrc/copy2d.cu`), counted in `COPIES`.
 
 Each wrapper checks what it is given and raises on anything its kernel does
 not take.  On CPU tensors it runs the plain torch version in `ops/gfmat.py`;
@@ -32,11 +33,13 @@ from nanorq_tpu_torch.ops import _build, gfmat
 
 LAUNCHES = {"gather_xor": 0, "gf2_matmul": 0, "gf256_matmul": 0,
             "gather_v1": 0, "gather_v2": 0, "gather_db": 0}
+COPIES = {"copy2d": 0}  # the DMA copies `copy2d` issued (CUDA only): no kernel, counted apart
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, COPIES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _need(cond: bool, msg: str) -> None:
@@ -392,6 +395,62 @@ def gf256_matmul(M: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = No
                         t, k * t, log.data_ptr(), exp.data_ptr(), res.data_ptr(), m * t, int(acc),
                         _stream(X.device))
     return res
+
+
+# --- the pitched upload (csrc/copy2d.cu) --------------------------------------
+
+_IN_FLIGHT: list = []  # (event, host tensor) of each 2-D copy that its stream may not have passed
+
+
+def _pitched(x: torch.Tensor, name: str, shape) -> int:
+    """Check a 2-D matrix of unit column stride (rows may lie apart); its
+    row pitch in bytes."""
+    _need(isinstance(x, torch.Tensor) and x.dim() == 2, f"{name}: expected a 2-D tensor")
+    _need(tuple(x.shape) == tuple(shape), f"{name}: shape {tuple(x.shape)} != {tuple(shape)}")
+    if not x.numel():
+        return x.shape[1] * x.element_size()
+    _need(x.shape[1] <= 1 or x.stride(1) == 1, f"{name}: its columns must be contiguous")
+    _need(x.shape[0] <= 1 or x.stride(0) >= x.shape[1], f"{name}: rows overlap (pitch {x.stride(0)})")
+    return max(x.stride(0), x.shape[1]) * x.element_size()
+
+
+def copy2d(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """dst = src for a host matrix src [rows, w] whose rows need not be
+    contiguous (a column range of a wider matrix: unit column stride, row
+    pitch >= w), into dst of the same shape and dtype with unit column
+    stride.
+
+    On a CUDA dst, src must be pinned: one cudaMemcpy2DAsync on the current
+    stream of dst's device reads it where it lies (`csrc/copy2d.cu`), with no
+    staging copy, and a failure raises.  PyTorch's pinned allocator records
+    an event only for the copies it issues itself, so the wrapper keeps src
+    alive until that stream has passed this copy (an event recorded after
+    it, held with src in `_IN_FLIGHT`): the block is neither freed nor handed
+    out again while the copy reads it.  On a CPU dst: `dst.copy_(src)`, the
+    plain version."""
+    _need(isinstance(src, torch.Tensor) and src.device.type == "cpu", "src: expected a host tensor")
+    _need(isinstance(dst, torch.Tensor) and dst.dtype == src.dtype,
+          f"dst: expected {src.dtype}, got {getattr(dst, 'dtype', type(dst))}")
+    spitch = _pitched(src, "src", src.shape)
+    dpitch = _pitched(dst, "dst", src.shape)
+    if dst.device.type == "cpu":
+        return dst.copy_(src)
+    _need(dst.device.type == "cuda", f"dst: unsupported device {dst.device}")
+    _need(src.is_pinned(), "src: a copy to the card reads pinned memory only")
+    rows, w = src.shape
+    if rows and w:
+        stream = torch.cuda.current_stream(dst.device)
+        with torch.cuda.device(dst.device):
+            rc = _build.load().nrq_copy2d(dst.data_ptr(), dpitch, src.data_ptr(), spitch, w * src.element_size(),
+                                          rows, stream.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"copy2d of [{rows}, {w}] failed: cudaError {rc}")
+        COPIES["copy2d"] += 1
+        done = torch.cuda.Event()
+        done.record(stream)
+        _IN_FLIGHT[:] = [(e, s) for e, s in _IN_FLIGHT if not e.query()]
+        _IN_FLIGHT.append((done, src))
+    return dst
 
 
 # --- gather probes (csrc/gather_probe.cu) -------------------------------------

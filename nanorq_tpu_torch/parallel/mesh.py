@@ -11,7 +11,11 @@ uploads its slice from pinned memory on its stream (`non_blocking`), runs the
 port's unsharded function on it there, and downloads its slice of the result
 into pinned memory; one host thread starts all of it and waits once.  Several
 lanes may name one device: two lanes of one card overlap the upload of one
-slice with the kernels of another, two lanes of two cards are two GPUs.
+slice with the kernels of another, two lanes of two cards are two GPUs.  A
+lane's column range of a pinned object crosses in one pitched copy
+(`kernels.copy2d`), with no host staging.  The default path itself takes
+lanes of one card for a wide object (`default_mesh`: width slices, so that
+copies and kernels overlap), else one lane on the current stream.
 
 "Replicated" schedule tensors are what the unsharded code caches already, per
 device: `device_arrays(ds, dev)`, `lt_plan(isis, P, dev)`,
@@ -142,6 +146,58 @@ def local_mesh(device) -> Mesh:
     do, so no call site keeps a second, pageable way; only an explicit mesh
     routes a decode to the device arm."""
     return Mesh([Lane(resolve(device), own_stream=False)])
+
+
+# The default object encode on a card runs in up to SLICES width slices, a
+# lane each, each slice uploading SLICE_BYTES of live rows at least: a slice
+# is at least SLICE_BYTES / (live rows) wide.  Set from tools/pipe_sweep.py
+# on the H100 (PERF.md): with fewer bytes a slice, its kernels' fixed costs
+# outgrow the copy time it hides.
+SLICES = 4
+SLICE_BYTES = 24 << 20
+
+_slices: dict = {}  # (device, n) -> the mesh of n lanes of that card
+
+
+def slice_mesh(device, n: int) -> Mesh:
+    """n lanes of one card, each on a stream of its own, made once per
+    (device, n) and kept: a program's key holds its stream
+    (`ops/program.py`), so lanes made afresh at every call would never
+    replay a captured program."""
+    dev = resolve(device)
+    mesh = _slices.get((dev, n))
+    if mesh is None:
+        mesh = _slices[(dev, n)] = make_mesh([dev] * n)
+    return mesh
+
+
+def slice_count(t: int, block: int, live: int) -> int:
+    """The rule: how many width slices the default path cuts an object of
+    width t (blocks of `block` bytes side by side) with `live` payload rows
+    into on a card -- as many as fit, up to SLICES, where each slice holds
+    whole blocks and uploads SLICE_BYTES (live * width) at least; 1 where
+    none fits or the width is no whole number of blocks."""
+    if t % block:
+        return 1
+    return max(1, min(SLICES, t // block, live * t // SLICE_BYTES))
+
+
+def default_mesh(device, t: int, block: int, live: int) -> Mesh:
+    """The lanes the default path (`mesh=None`) splits an object of width t
+    over: on a card cut into `slice_count(t, block, live)` > 1 slices, that many
+    lanes of the card (`slice_mesh`), so that one slice's upload from the
+    pinned object runs on a copy engine while another's replay and LT
+    combine run on the SMs and a third's download on the other copy engine;
+    else (the CPU, a narrow object) the one lane of `local_mesh`."""
+    dev = resolve(device)
+    n = slice_count(t, block, live) if dev.type == "cuda" else 1
+    return slice_mesh(dev, n) if n > 1 else local_mesh(dev)
+
+
+def is_sliced(mesh) -> bool:
+    """Whether `mesh` is one of the kept meshes of `slice_mesh`: an array
+    sharded over it belongs to the default path as much as to its caller."""
+    return any(mesh is m for m in _slices.values())
 
 
 def host_zeros(shape: tuple, device) -> np.ndarray:
@@ -313,21 +369,28 @@ def upload(lane: Lane, D, rows: int, live: int) -> torch.Tensor:
     device as [rows, ...]: D's leading `live` rows, then zeros.  D's rows at or
     past `live` are zero (or absent), so they are neither copied nor uploaded.
 
-    On a CUDA lane the live rows cross in one `non_blocking` copy on the
-    lane's stream: straight out of D where they are pinned and contiguous
-    (`host_matrix`; PyTorch then keeps that pinned block from reuse until the
-    copy is done), else out of a pinned staging copy (`stage`).  A CPU lane
-    reads D in place where it has exactly `rows` contiguous rows, else copies."""
+    On a CUDA lane the live rows cross in one copy on the lane's stream,
+    straight out of D where it is pinned: a contiguous D in one
+    `non_blocking` copy (`host_matrix`; PyTorch then keeps that pinned block
+    from reuse until the copy is done), a column range of one (rows apart,
+    columns contiguous) in one pitched copy (`kernels.copy2d`, which keeps
+    D alive until its stream has passed the copy, and raises on any other
+    layout).  Only a pageable D goes
+    through a pinned staging copy (`stage`).  A CPU lane reads D in place
+    where it has exactly `rows` contiguous rows, else copies."""
     src = torch.as_tensor(D)
     head = src[:live]
     shape = (rows, *src.shape[1:])
     if not lane.cuda and src.shape[0] == rows and src.is_contiguous():
         return src
-    if not (lane.cuda and head.is_contiguous() and head.is_pinned()):
+    if not (lane.cuda and head.is_pinned()):
         return stage(lane, shape, lambda h: h.copy_(head), src.dtype, rows=live)
     with lane.on():
         x = program.empty(shape, src.dtype, lane.device)
-        x[:live].copy_(head, non_blocking=True)
+        if head.is_contiguous():
+            x[:live].copy_(head, non_blocking=True)
+        else:
+            kernels.copy2d(x[:live], head)
         if live < rows:
             x[live:].zero_()
     return x
@@ -476,10 +539,11 @@ def shard_width(D: np.ndarray, mesh: Mesh, block: int | None = None, live_rows: 
     """Place a host payload matrix D [n, t] with its width split over the
     mesh: lane i holds the columns `shard_ranges(t, lanes, block)[i]` as a
     [rows, hi - lo] tensor (rows: default n), uploaded on its stream
-    (`upload`).  A lane with the whole width of a pinned D takes its rows in
-    one copy; a column range is strided, so it goes through a pinned staging
-    copy, which is host work of the whole matrix inside whatever clock runs
-    around this call.
+    (`upload`).  Out of a pinned D every lane takes its rows in one copy: the
+    whole width as it is, a column range by one pitched copy; a pageable D
+    goes through pinned staging, host work inside whatever clock runs
+    around this call.  Every upload is issued before any lane's kernels, so
+    that one lane's copy runs beside another's replay.
 
     `live_rows`: rows at or past it are known to be zero (an encoder's D
     holds K payload rows of M_pad); they are neither staged nor uploaded but

@@ -8,7 +8,8 @@ limit:
 
 - encode (chip_smoke phase 3): `codec.batch.generate` + `repair_symbols` of
   the object, `--encodes` times in a row, host clock with a wait after each
-  (`s`: cold, second, then warm);
+  (`s`: cold, second, then warm), and the width slices the default path
+  took (`slices`);
 - decode (phase 4): `repair_all(backend="device")` of the object, cold (the
   plans cleared) then warm, host clock;
 - lanes (phase 10): the encode over 4 lanes of the card(s), 4 rounds;
@@ -45,6 +46,14 @@ def _programs_mb():
     except ImportError:  # a package from before the program layer
         return None
     return round(program.cached_bytes() / 2**20, 1)
+
+
+def _slices(dev, t: int, T: int, K: int) -> int:
+    """The width slices the default path cuts the object into (1 for a
+    package from before it had them)."""
+    from nanorq_tpu_torch.parallel import mesh as lanes
+
+    return lanes.default_mesh(dev, t, T, K).size if hasattr(lanes, "default_mesh") else 1
 
 
 def _sync() -> None:
@@ -123,7 +132,8 @@ def main(argv=None) -> list:
         tbatch.generate(batch, dev, mesh=mesh)
         reps.update(tbatch.repair_symbols(batch, K // 5, dev, mesh=mesh))
 
-    lines = [_step("encode", lambda: {"s": _walls(encode, args.encodes)}, fields, dev)]
+    lines = [_step("encode", lambda: {"s": _walls(encode, args.encodes), "slices": _slices(dev, Z * T, T, K)},
+                   fields, dev)]
     batch.C = None
 
     deliveries = _deliveries(np.random.default_rng(SEED + 1), K, Z)
