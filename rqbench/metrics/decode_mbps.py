@@ -1,0 +1,7 @@
+"""decode_mbps: 8 x the bytes of the objects received (ingestion and repair) / 2**20 / window seconds."""
+
+from rqbench.readers import rate_mbps
+
+
+def read(run):
+    return rate_mbps(run, "dec_s")
