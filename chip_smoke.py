@@ -1052,6 +1052,7 @@ def phase_profile(enc, batch, data, reps, dev, deliveries, slices: int) -> dict:
     from nanorq_tpu_torch.codec import batch as tbatch
     from nanorq_tpu_torch.tools import gather_launches
     from nanorq_tpu_torch.tools.pipe_sweep import overlap
+    from nanorq_tpu_torch.utils import stats
 
     report = {}
     for name in ("encode", "decode"):
@@ -1070,8 +1071,11 @@ def phase_profile(enc, batch, data, reps, dev, deliveries, slices: int) -> dict:
                 raise AssertionError("the profiled decode did not restore the object")
             _say("profile-ingest", run=name, ingest_ms=f"{info['ingest_ms']:.3f}",
                  stage_ms=f"{info['stage_ms']:.3f}", pinned_bytes=info["pinned_bytes"])
+        stats.take_spans()  # what the profile turned on: nothing here reads it
         per, copies = {}, {}
         for e in prof.key_averages():
+            if stats.is_range(e.key):  # a span of the program, not device work
+                continue
             ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
             if e.key.startswith("Memcpy"):  # by kind: "Memcpy HtoD (Pinned -> Device)", ...
                 tot, cnt = copies.get(e.key, (0.0, 0))

@@ -76,6 +76,18 @@ SYM_IGN = 1
 SYM_DUP = 2
 SYM_ERR = -1
 
+# the ingestion counter of each status
+_STATUS_COUNTER = {SYM_ERR: "ingest_err", SYM_ADDED: "ingest_added", SYM_IGN: "ingest_ign", SYM_DUP: "ingest_dup"}
+
+
+def _count_statuses(statuses: np.ndarray) -> None:
+    """Counters "ingest_symbols" and one a status, for one call's statuses."""
+    stats.count("ingest_symbols", int(statuses.size))
+    for st, n in zip((SYM_ERR, SYM_ADDED, SYM_IGN, SYM_DUP), np.bincount(statuses + 1, minlength=4)):
+        if n:
+            stats.count(_STATUS_COUNTER[st], int(n))
+
+
 # shared all-zeros symbol rows (per T), read-only: padding/constraint rows of
 # the patched system point here in the host arm's zero-copy row-pointer map
 _ZERO_ROWS: dict[int, np.ndarray] = {}
@@ -477,7 +489,14 @@ class Decoder(_CodecBase):
         return True
 
     def add_symbol(self, data, tag: int, io: IOContext) -> int:
-        """Ingest one received symbol (nanorq_decoder_add_symbol parity)."""
+        """Ingest one received symbol (nanorq_decoder_add_symbol parity);
+        counted as `add_symbols` counts."""
+        st = self._add_symbol(data, tag, io)
+        stats.count("ingest_symbols")
+        stats.count(_STATUS_COUNTER[st])
+        return st
+
+    def _add_symbol(self, data, tag: int, io: IOContext) -> int:
         sbn, esi = split_tag(tag)
         if sbn >= self.num_blocks or esi > self.max_esi:
             return SYM_ERR
@@ -561,84 +580,100 @@ class Decoder(_CodecBase):
         semantics (first occurrence ADDED, later DUP; symbols arriving after
         the block completes IGN), but vectorized: one payload-matrix write
         per block and coalesced write-through I/O instead of n passes.
-        """
-        payloads = np.asarray(payloads, np.uint8)
-        if payloads.ndim == 1:
-            payloads = payloads[None]
-        try:
-            tags_arr = np.asarray(tags, dtype=np.int64)
-        except (TypeError, ValueError):
-            tags_arr = np.fromiter((int(t) for t in tags), np.int64, count=len(tags))
-        n = tags_arr.shape[0]
-        if payloads.shape[0] != n or payloads.shape[1] != self.scheme.T:
-            return [SYM_ERR] * n
-        sbns = (tags_arr >> 24) & 0xFF
-        esis = tags_arr & 0xFFFFFF
-        fast = self._add_symbols_fast(payloads, sbns, esis, io)
-        if fast is not None:
-            return fast
-        statuses = np.empty(n, np.int64)
-        for sbn in np.unique(sbns):
-            idxs = np.nonzero(sbns == sbn)[0]
-            if sbn >= self.num_blocks:
-                statuses[idxs] = SYM_ERR
-                continue
-            b = self._block(int(sbn))
-            e = esis[idxs]
-            st = np.full(e.shape, SYM_ADDED, np.int64)
-            st[e > self.max_esi] = SYM_ERR
-            ok = st == SYM_ADDED
-            # duplicates: against already-received and within-batch repeats
-            is_src = e < b.K
-            dup = np.zeros(e.shape, bool)
-            dup[is_src] = b.got[e[is_src]]
-            if b.rep_seen:
-                rep_i = np.nonzero(ok & ~is_src)[0]
-                dup[rep_i] = np.fromiter((int(x) in b.rep_seen for x in e[rep_i]), bool, rep_i.size)
-            first = np.zeros(e.shape, bool)
-            first[np.unique(e, return_index=True)[1]] = True
-            st[ok & (dup | ~first)] = SYM_DUP
-            ok = st == SYM_ADDED
-            # in-order completion: a symbol is IGN if the block was already
-            # complete before it (new source symbols fill gaps as they land)
-            missing = b.K - b.nsrc
-            new_src = ok & is_src
-            filled_before = np.concatenate([[0], np.cumsum(new_src)[:-1]])
-            ign = (st != SYM_ERR) & (filled_before >= missing)
-            st[ign] = SYM_IGN
-            ok = st == SYM_ADDED
-            src = ok & is_src
-            if src.any():
-                pe = e[src]
-                pidx = idxs[src]
-                if pidx.size > 1 and pidx[-1] - pidx[0] == pidx.size - 1:
-                    pl = payloads[pidx[0] : pidx[-1] + 1]  # contiguous: no copy
-                else:
-                    pl = payloads[pidx]
-                self._write_symbols_coalesced(io, int(sbn), pe, b.K, pl)
-                b.got[pe] = True
-                b.nsrc += pe.size
-                if b.nsrc < b.K:  # incomplete: keep rows for a later repair
-                    self._source_rows(int(sbn), b)[pe] = pl
-                # complete: repair is a no-op, the D rows would never be read
-            rep = np.nonzero(ok & ~src)[0]
-            if rep.size:
-                b.add_repair(e[rep], payloads[idxs[rep]])
-            statuses[idxs] = st
-        return statuses.tolist()
 
-    def _add_symbols_fast(self, payloads, sbns, esis, io: IOContext):
-        """Whole-batch ingestion fast path: a duplicate-free source-symbol
-        burst into untouched blocks (the common 0%-loss in-order delivery
-        case).  All statuses are ADDED by construction; writes collapse to
-        one io.write_at per contiguous run.  Returns None when any
-        precondition fails (the general per-block path handles it).
-
-        The run-coalescing here intentionally parallels
-        _write_symbols_coalesced but works on OBJECT offsets across all
-        blocks at once — a whole in-order object burst merges into a single
-        write, which per-block delegation could not do.
+        Span `add_symbols` > `ingest.status` (tags and statuses),
+        `ingest.write` (the write-through), `ingest.slab` (the slab rows),
+        `ingest.repair` (the repair rows); counters "ingest_symbols" and
+        "ingest_added" / "_dup" / "_ign" / "_err" by status, "ingest_fast"
+        (calls the whole-batch fast path served).
         """
+        with stats.span("add_symbols"):
+            with stats.span("ingest.status"):
+                payloads = np.asarray(payloads, np.uint8)
+                if payloads.ndim == 1:
+                    payloads = payloads[None]
+                try:
+                    tags_arr = np.asarray(tags, dtype=np.int64)
+                except (TypeError, ValueError):
+                    tags_arr = np.fromiter((int(t) for t in tags), np.int64, count=len(tags))
+                n = tags_arr.shape[0]
+                if payloads.shape[0] != n or payloads.shape[1] != self.scheme.T:
+                    _count_statuses(np.full(n, SYM_ERR))
+                    return [SYM_ERR] * n
+                sbns = (tags_arr >> 24) & 0xFF
+                esis = tags_arr & 0xFFFFFF
+                runs = self._fast_runs(sbns, esis)
+                if runs is None:
+                    statuses = np.empty(n, np.int64)
+                    blocks = np.unique(sbns)
+            if runs is not None:
+                self._add_symbols_fast(payloads, sbns, esis, io, runs)
+                stats.count("ingest_fast")
+                stats.count("ingest_symbols", n)
+                stats.count("ingest_added", n)
+                return [SYM_ADDED] * n
+            for sbn in blocks:
+                with stats.span("ingest.status"):
+                    idxs = np.nonzero(sbns == sbn)[0]
+                    if sbn >= self.num_blocks:
+                        statuses[idxs] = SYM_ERR
+                        continue
+                    b = self._block(int(sbn))
+                    e = esis[idxs]
+                    st = np.full(e.shape, SYM_ADDED, np.int64)
+                    st[e > self.max_esi] = SYM_ERR
+                    ok = st == SYM_ADDED
+                    # duplicates: against already-received and within-batch repeats
+                    is_src = e < b.K
+                    dup = np.zeros(e.shape, bool)
+                    dup[is_src] = b.got[e[is_src]]
+                    if b.rep_seen:
+                        rep_i = np.nonzero(ok & ~is_src)[0]
+                        dup[rep_i] = np.fromiter((int(x) in b.rep_seen for x in e[rep_i]), bool, rep_i.size)
+                    first = np.zeros(e.shape, bool)
+                    first[np.unique(e, return_index=True)[1]] = True
+                    st[ok & (dup | ~first)] = SYM_DUP
+                    ok = st == SYM_ADDED
+                    # in-order completion: a symbol is IGN if the block was already
+                    # complete before it (new source symbols fill gaps as they land)
+                    missing = b.K - b.nsrc
+                    new_src = ok & is_src
+                    filled_before = np.concatenate([[0], np.cumsum(new_src)[:-1]])
+                    ign = (st != SYM_ERR) & (filled_before >= missing)
+                    st[ign] = SYM_IGN
+                    ok = st == SYM_ADDED
+                    src = ok & is_src
+                    statuses[idxs] = st
+                    rep = np.nonzero(ok & ~src)[0]
+                    pe = e[src]
+                if pe.size:
+                    with stats.span("ingest.write"):
+                        pidx = idxs[src]
+                        if pidx.size > 1 and pidx[-1] - pidx[0] == pidx.size - 1:
+                            pl = payloads[pidx[0] : pidx[-1] + 1]  # contiguous: no copy
+                        else:
+                            pl = payloads[pidx]
+                        self._write_symbols_coalesced(io, int(sbn), pe, b.K, pl)
+                        b.got[pe] = True
+                        b.nsrc += pe.size
+                    if b.nsrc < b.K:  # incomplete: keep rows for a later repair
+                        with stats.span("ingest.slab"):
+                            self._source_rows(int(sbn), b)[pe] = pl
+                    # complete: repair is a no-op, the D rows would never be read
+                if rep.size:
+                    with stats.span("ingest.repair"):
+                        b.add_repair(e[rep], payloads[idxs[rep]])
+            with stats.span("ingest.status"):
+                _count_statuses(statuses)
+                return statuses.tolist()
+
+    def _fast_runs(self, sbns, esis):
+        """Whether the whole-batch ingestion fast path takes a burst: a
+        duplicate-free source-symbol burst into untouched blocks (the common
+        0%-loss in-order delivery case), where every status is ADDED by
+        construction.  Its object-order runs (order, sorted offsets, run
+        starts, the blocks), or None when any precondition fails (the
+        general per-block path handles it)."""
         if self.scheme.N != 1 or sbns.size == 0:
             return None
         src = self.scheme.src
@@ -666,18 +701,30 @@ class Decoder(_CodecBase):
             d_s = np.diff(off_s)
         if (d_s == 0).any():
             return None  # within-batch duplicate
-        brk = np.nonzero(d_s != T)[0] + 1
+        return order, off_s, np.nonzero(d_s != T)[0] + 1, usbns
+
+    def _add_symbols_fast(self, payloads, sbns, esis, io: IOContext, runs) -> None:
+        """The fast path's ingestion of a burst `_fast_runs` took: writes
+        collapse to one io.write_at per contiguous run.
+
+        The run-coalescing here intentionally parallels
+        _write_symbols_coalesced but works on OBJECT offsets across all
+        blocks at once — a whole in-order object burst merges into a single
+        write, which per-block delegation could not do.
+        """
+        order, off_s, brk, usbns = runs
         F = self.scheme.F
-        for s, e in zip(np.r_[0, brk], np.r_[brk, off_s.size]):
-            o0 = int(off_s[s])
-            idx = order[s:e]
-            if idx[-1] - idx[0] == idx.size - 1 and (idx.size == 1 or bool((np.diff(idx) == 1).all())):
-                chunk = payloads[idx[0] : idx[-1] + 1].reshape(-1)  # in-order: no copy
-            else:
-                chunk = payloads[idx].reshape(-1)
-            length = min(chunk.size, max(0, F - o0))
-            if length > 0:
-                io.write_at(o0, chunk[:length])
+        with stats.span("ingest.write"):
+            for s, e in zip(np.r_[0, brk], np.r_[brk, off_s.size]):
+                o0 = int(off_s[s])
+                idx = order[s:e]
+                if idx[-1] - idx[0] == idx.size - 1 and (idx.size == 1 or bool((np.diff(idx) == 1).all())):
+                    chunk = payloads[idx[0] : idx[-1] + 1].reshape(-1)  # in-order: no copy
+                else:
+                    chunk = payloads[idx].reshape(-1)
+                length = min(chunk.size, max(0, F - o0))
+                if length > 0:
+                    io.write_at(o0, chunk[:length])
         for s in usbns:
             b = self._block(int(s))
             m = sbns == s
@@ -689,8 +736,8 @@ class Decoder(_CodecBase):
                 pe = esis[m]
                 b.got[pe] = True
                 b.nsrc = cnt
-                self._source_rows(int(s), b)[pe] = payloads[m]
-        return [SYM_ADDED] * int(sbns.size)
+                with stats.span("ingest.slab"):
+                    self._source_rows(int(s), b)[pe] = payloads[m]
 
     def num_missing(self, sbn: int) -> int:
         b = self._block(sbn)
@@ -757,8 +804,6 @@ class Decoder(_CodecBase):
         rows: every row past `live` is zero, so a gathered row at or past it
         reads the zero row and W's columns there are cut -- the same product
         from half the upload."""
-        stats.count("repair_batch_launch")
-        stats.count("repair_batch_blocks", len(items))
         plans = [p for _, _, _, p in items]
         M_pad, T = plans[0].M_pad, self.scheme.T
         live = min(self.P.Kp + max(ov for _, _, ov, _ in items), M_pad - 1)
@@ -782,22 +827,26 @@ class Decoder(_CodecBase):
         structured replay (the program of the schedule's signature, which
         a cold pattern shares with the patterns of its signature met
         before, `ops/program.py`) plus an LT combine of the gap ISIs.  What
-        is cached per device is fetched first, on the current stream; then
-        the block's patched matrix [M_pad, T] is built on the lane's stream
+        block's patched matrix [M_pad, T] is built on the lane's stream
         (`parallel.mesh.assemble`: the ingestion matrix uploaded from pinned
         memory, the repair rows placed by one K1, every other row zero: the
-        structured replay reads all M_pad) and the recovery launched."""
-        if isinstance(ds, _cache.WSchedule):
-            ds.staged(lane.device)
-            run = ds.apply
-        else:
-            arr = device_arrays(ds, lane.device)
-            plan = lt_plan(gaps.astype(np.uint32), self.P, lane.device)
-            run = lambda D: lt_combine(program.replay(arr, D), plan)  # noqa: E731
-        D_dev = lanes.assemble(lane, (1, ds.M_pad, self.scheme.T),
-                               *self._repair_parts([(sbn, gaps, overhead)], ds.M_pad))[0]
-        with lane.on():
-            return _HostView(_HostResult(run(D_dev)[: gaps.size], lane))
+        structured replay reads all M_pad; span `repair.assemble`); then what
+        is cached per device is fetched, on the current stream, which the
+        lane's stream waits for, and the recovery launched (span
+        `repair.apply`)."""
+        with stats.span("repair.assemble"):
+            D_dev = lanes.assemble(lane, (1, ds.M_pad, self.scheme.T),
+                                   *self._repair_parts([(sbn, gaps, overhead)], ds.M_pad))[0]
+        with stats.span("repair.apply"):
+            if isinstance(ds, _cache.WSchedule):
+                ds.staged(lane.device)
+                run = ds.apply
+            else:
+                arr = device_arrays(ds, lane.device)
+                plan = lt_plan(gaps.astype(np.uint32), self.P, lane.device)
+                run = lambda D: lt_combine(program.replay(arr, D), plan)  # noqa: E731
+            with lane.on():
+                return _HostView(_HostResult(run(D_dev)[: gaps.size], lane))
 
     def _repair_finish(self, io: IOContext, sbn: int, gaps: np.ndarray, sym) -> bool:
         b = self._block(sbn)
@@ -809,17 +858,26 @@ class Decoder(_CodecBase):
         return self.num_missing(sbn) == 0
 
     def repair_block(self, io: IOContext, sbn: int) -> bool:
-        """Recover the block's missing source symbols on the device."""
-        prep = self._repair_prepare(sbn)
-        if isinstance(prep, bool):
-            return prep
-        gaps, isis, overhead = prep
-        ds = _cache.decoder_plan(self.P, isis, overhead)
-        if ds is None:
-            stats.count("repair_block_failed")
-            return False  # rank deficient: feed more symbols, retry
-        lane = lanes.local_mesh(self.device).lanes[0]
-        return self._repair_finish(io, sbn, gaps, self._repair_launch(lane, sbn, gaps, overhead, ds))
+        """Recover the block's missing source symbols on the device.  Span
+        `repair_block` > `repair.prepare` (the patched system's ISIs, the
+        lane), `repair.plan` (`codec.cache.decoder_plan`), `repair.assemble`,
+        `repair.apply` (`_repair_launch`), `repair.finish` (the download,
+        `fetch`, and the write-out)."""
+        with stats.span("repair_block"):
+            with stats.span("repair.prepare"):
+                prep = self._repair_prepare(sbn)
+                if isinstance(prep, bool):
+                    return prep
+                lane = lanes.local_mesh(self.device).lanes[0]
+            gaps, isis, overhead = prep
+            with stats.span("repair.plan"):
+                ds = _cache.decoder_plan(self.P, isis, overhead)
+            if ds is None:
+                stats.count("repair_block_failed")
+                return False  # rank deficient: feed more symbols, retry
+            sym = self._repair_launch(lane, sbn, gaps, overhead, ds)
+            with stats.span("repair.finish"):
+                return self._repair_finish(io, sbn, gaps, sym)
 
     def _row_ptrs(self, sbn: int, gaps: np.ndarray, overhead: int, NB: int) -> np.ndarray:
         """Per-row payload addresses of the patched system's NB rows —
@@ -916,7 +974,7 @@ class Decoder(_CodecBase):
         kc = _cache.res_kcols(P)
         Kp = P.Kp
         nb = len(work)
-        with stats.timer("res_prep"):
+        with stats.span("res_prep"):
             buf_base = None
             if io is not None and scheme.N == 1:
                 buf = getattr(io, "buffer", None)
@@ -998,7 +1056,7 @@ class Decoder(_CodecBase):
         P, T = self.P, self.scheme.T
         kc = _cache.res_kcols(P)
         metas, Ws, Gs = [], [], []
-        with stats.timer("res_prep"):
+        with stats.span("res_prep"):
             for sbn, gaps, isis, ov in work:
                 W = _cache.res_wrows(P, np.concatenate([isis[gaps], isis[P.Kp : P.Kp + ov]]))
                 if W is None:
@@ -1006,7 +1064,7 @@ class Decoder(_CodecBase):
                 metas.append((sbn, gaps))
                 Ws.append(W)
                 Gs.append(np.ascontiguousarray(W[:, gaps]))
-        with stats.timer("res_rinv"):
+        with stats.span("res_rinv"):
             rr = res_rinv(Gs)
         if rr is None:
             raise RuntimeError(_NO_FACTOR)

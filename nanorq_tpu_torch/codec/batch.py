@@ -17,6 +17,7 @@ from nanorq_tpu_torch.codec import cache as _cache
 from nanorq_tpu_torch.codec.api import Encoder
 from nanorq_tpu_torch.io.ioctx import IOContext
 from nanorq_tpu_torch.parallel import mesh as lanes
+from nanorq_tpu_torch.utils import stats
 
 
 @dataclass
@@ -33,16 +34,22 @@ class ObjectBatch:
 
 def load_object(enc: Encoder, io: IOContext, sbns=None) -> ObjectBatch:
     """Read all source symbols of the given blocks into one payload matrix,
-    in pinned memory when the encoder's device is a card."""
-    sbns = list(range(enc.num_blocks)) if sbns is None else list(sbns)
-    T = enc.symbol_size
-    Ks = np.array([enc.block_symbols(sbn) for sbn in sbns], np.int64)
-    ds = _cache.encoder_schedule(enc.P.Kp)
-    D = lanes.host_matrix(int(Ks.max(initial=0)), ds.M_pad, len(sbns) * T, enc.device)
-    for b, (sbn, K) in enumerate(zip(sbns, Ks)):
-        for esi in range(K):
-            D[esi, b * T : (b + 1) * T] = enc._read_symbol(io, sbn, esi, K)
-    return ObjectBatch(enc=enc, sbns=sbns, Ks=Ks, D=D)
+    in pinned memory when the encoder's device is a card.  Spans
+    `load_object` > `load.alloc` (the matrix), `load.read` (the symbols);
+    counter "load_symbols" (the symbols read)."""
+    with stats.span("load_object"):
+        sbns = list(range(enc.num_blocks)) if sbns is None else list(sbns)
+        T = enc.symbol_size
+        Ks = np.array([enc.block_symbols(sbn) for sbn in sbns], np.int64)
+        ds = _cache.encoder_schedule(enc.P.Kp)
+        with stats.span("load.alloc"):
+            D = lanes.host_matrix(int(Ks.max(initial=0)), ds.M_pad, len(sbns) * T, enc.device)
+        with stats.span("load.read"):
+            for b, (sbn, K) in enumerate(zip(sbns, Ks)):
+                for esi in range(K):
+                    D[esi, b * T : (b + 1) * T] = enc._read_symbol(io, sbn, esi, K)
+        stats.count("load_symbols", int(Ks.sum()))
+        return ObjectBatch(enc=enc, sbns=sbns, Ks=Ks, D=D)
 
 
 def generate(batch: ObjectBatch, device, mesh=None):
@@ -59,13 +66,16 @@ def generate(batch: ObjectBatch, device, mesh=None):
     batch.C is one tensor.  The JAX package pads the width to a multiple of
     the device count first (`pad_width`: its shards must be equal); lanes
     take unequal shards, so the object's matrix is not copied to pad it."""
-    ds = _cache.encoder_schedule(batch.enc.P.Kp)
-    T, live = batch.enc.symbol_size, int(batch.Ks.max())
-    on = lanes.default_mesh(device, batch.D.shape[1], T, live) if mesh is None else mesh
-    Dsh = lanes.shard_width(batch.D, on, block=T, live_rows=live, rows=ds.M_pad)
-    C = lanes.replay_sharded(ds, Dsh, on)
-    batch.C = C if mesh is not None or on.size > 1 else C.parts[0]
-    return batch.C
+    with stats.span("generate"):
+        ds = _cache.encoder_schedule(batch.enc.P.Kp)
+        T, live = batch.enc.symbol_size, int(batch.Ks.max())
+        on = lanes.default_mesh(device, batch.D.shape[1], T, live) if mesh is None else mesh
+        with stats.span("generate.upload"):
+            Dsh = lanes.shard_width(batch.D, on, block=T, live_rows=live, rows=ds.M_pad)
+        with stats.span("generate.replay"):
+            C = lanes.replay_sharded(ds, Dsh, on)
+        batch.C = C if mesh is not None or on.size > 1 else C.parts[0]
+        return batch.C
 
 
 def source_symbol(batch: ObjectBatch, b: int, esi: int) -> np.ndarray:
@@ -90,10 +100,13 @@ def repair_symbols(batch: ObjectBatch, n_repair: int, device, mesh=None) -> dict
         lanes.check_mesh(mesh)
     if batch.C is None:
         generate(batch, device, mesh=mesh)
-    P = batch.enc.P
-    isis = np.arange(P.Kp, P.Kp + n_repair, dtype=np.uint32)
-    if isinstance(batch.C, lanes.Sharded) and batch.C.mesh is not mesh and not (
-            mesh is None and lanes.is_sliced(batch.C.mesh)):
-        batch.C = batch.C.gather(device)
-    C = batch.C if isinstance(batch.C, lanes.Sharded) else lanes.whole(batch.C)
-    return lanes.lt_sharded(C, isis, P, C.mesh).host_blocks(batch.enc.symbol_size, len(batch.sbns), n_repair)
+    with stats.span("repair_symbols"):
+        P = batch.enc.P
+        isis = np.arange(P.Kp, P.Kp + n_repair, dtype=np.uint32)
+        if isinstance(batch.C, lanes.Sharded) and batch.C.mesh is not mesh and not (
+                mesh is None and lanes.is_sliced(batch.C.mesh)):
+            batch.C = batch.C.gather(device)
+        C = batch.C if isinstance(batch.C, lanes.Sharded) else lanes.whole(batch.C)
+        with stats.span("lt.combine"):
+            S = lanes.lt_sharded(C, isis, P, C.mesh)
+        return S.host_blocks(batch.enc.symbol_size, len(batch.sbns), n_repair)

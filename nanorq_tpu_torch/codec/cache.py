@@ -47,11 +47,10 @@ def encoder_schedule(Kp: int, CB: int | None = None) -> DeviceSchedule:
     with _enc_lock:
         ds = _enc_cache.get(key)
     if ds is not None:
-        stats.count("enc_schedule_cache_hit")
         return ds
     P = params_init(Kp)
     assert P.Kp == Kp
-    with stats.timer("enc_solve"):
+    with stats.span("enc_solve"):
         st = solve_state(P, binary_rows(P))
     if st is None:  # cannot happen for Table 2 K' values
         raise RuntimeError(f"encoder precode solve failed for K'={Kp}")
@@ -179,7 +178,7 @@ def canonical_state(P: Params):
         st = _canon_cache.get(P.Kp)
     if st is not None:
         return st if st != "unavailable" else None
-    with stats.timer("canon_solve"):
+    with stats.span("canon_solve"):
         st = solve_state(P, _base_rows(P))
     if st is None or getattr(st, "tri_edges", None) is None:
         with _canon_lock:
@@ -207,7 +206,7 @@ def _wrows_unique(P: Params, st, uniq: np.ndarray) -> np.ndarray:
                 Wu[j] = got
     if missing:
         midx = np.asarray(missing, np.int64)
-        with stats.timer("res_wrows"):
+        with stats.span("res_wrows"):
             W, _ = wpath.w_rows(st, _lt_rows_cached(P, uniq[midx]), n_cols=_pad_rows(st.M + 1))
         rows = np.ascontiguousarray(W[:, :kc])
         Wu[midx] = rows
@@ -381,7 +380,7 @@ def decoder_plan(P: Params, isis: np.ndarray, overhead: int):
     if hit:
         stats.count("dec_schedule_cache_hit")
         return cached
-    with stats.timer("dec_solve"):
+    with stats.span("dec_solve"):
         st = solve_state(P, _patched_rows(P, isis, overhead), overhead)
     plan = None
     if st is not None:
@@ -394,7 +393,7 @@ def decoder_plan(P: Params, isis: np.ndarray, overhead: int):
             # gap ISIs are systematic rows of the cached base CSR — a
             # vectorized slice, no tuple/PRNG expansion
             out_rows = _rows_subset(_base_rows(P), gaps)
-            with stats.timer("dec_wrows"):
+            with stats.span("dec_wrows"):
                 if use_gf2:
                     Wbits, rows = wpath.w_rows_gf2(st, out_rows, zero_row=M_pad - 1)
                     plan = WSchedule(M_pad, gaps.size, Wbits=Wbits, rows=rows)
@@ -428,7 +427,7 @@ def decoder_schedule(P: Params, isis: np.ndarray, overhead: int, CB: int | None 
     if hit:
         stats.count("dec_schedule_cache_hit")
         return cached
-    with stats.timer("dec_solve"):
+    with stats.span("dec_solve"):
         st = solve_state(P, _patched_rows(P, isis, overhead), overhead)
     ds = None if st is None else compile_device(st, CB=CB, canonical=True)
     if ds is None:

@@ -7,7 +7,7 @@ what callers need from it:
 
 - object I/O and packet tags: `MemoryIO`, `make_tag`;
 - the native C++ solver probe: `native_available`;
-- the codec's counters and timers: `stats`;
+- the codec's counters, timers and spans: `stats`;
 - RFC parameters and the encoder's precode schedule: `params_init`,
   `encoder_schedule`;
 - the oracle: `replay_numpy` (the structured replay in numpy) and

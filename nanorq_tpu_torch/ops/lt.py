@@ -30,7 +30,6 @@ from nanorq_tpu_torch.ops.replay import _idx, apply_plan, placed
 from nanorq_tpu_torch.precode.device_schedule import _gather_plan_flat
 from nanorq_tpu_torch.rfc.params import Params
 from nanorq_tpu_torch.rfc.tuples import lt_indices
-from nanorq_tpu_torch.utils import stats
 from nanorq_tpu_torch.utils.lru import ByteLRU
 
 
@@ -110,7 +109,6 @@ def lt_plan(isis: np.ndarray, P: Params, device, mode: str = "auto") -> LTPlan:
     key = b"%d|%s|%s|" % (P.Kp, mode.encode(), str(dev).encode()) + isis.tobytes()
     hit, cached = _plan_cache.get(key)
     if hit:
-        stats.count("torch_lt_plan_cache_hit")
         return cached
     n = isis.shape[0]
     n_pad = _pad_rows(n)

@@ -56,8 +56,8 @@ card's other programs are evicted and the call is made once more
 caller reclaims once the capture has ended (`run`).  Counters in
 `utils.stats`: replay_program_capture, replay_program_replay,
 replay_program_shared (a replay by another schedule than the one that
-captured the program), replay_program_evict; the capture's host time is the
-timer replay_program_capture_s.
+captured the program), replay_program_evict; while tracing is on, the
+capture is the span replay_program_capture.
 
 Nothing is captured on the CPU: the replay runs eagerly there (JAX on the
 CPU, too, dispatches the same ops).  A caller that is capturing a graph
@@ -227,7 +227,7 @@ def _build(arr: dict, D: torch.Tensor, key: tuple) -> torch.Tensor:
     _copy_in(prog, arr)
     view = _replay.views(arr, prog.slot)
     t0 = time.perf_counter()
-    with stats.timer("replay_program_capture_s"), kernels.tape() as tp:
+    with stats.span("replay_program_capture"), kernels.tape() as tp:
         prog.graph, pool = capture(functools.partial(_replay.body, view, prog.buf), dev)
     prog.tape, prog.capture_s = tp, time.perf_counter() - t0
     prog.nbytes = pool + prog.slot.numel() + sum(b.numel() for b in prog.buf.values())

@@ -448,20 +448,23 @@ def assemble(lane: Lane, shape: tuple, heads: list, extra: list, places: np.ndar
 def fetch(pairs) -> list[np.ndarray]:
     """Host copies of contiguous tensors, each on its lane: every download is
     started on its lane's stream into a pinned destination, then one wait per
-    stream.  pairs: [(lane, tensor)]."""
-    out = []
-    for lane, x in pairs:
-        if not lane.cuda:
-            out.append(x)
-            continue
-        with torch.cuda.stream(lane.queue()):
-            h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            h.copy_(x, non_blocking=True)
-        out.append(h)
-    for lane in {lane for lane, _ in pairs}:
-        if lane.cuda:
-            lane.queue().synchronize()
-    return [h.numpy() for h in out]
+    stream (span `fetch.wait`: the host blocked on the card).  pairs:
+    [(lane, tensor)]."""
+    with stats.span("fetch"):
+        out = []
+        for lane, x in pairs:
+            if not lane.cuda:
+                out.append(x)
+                continue
+            with torch.cuda.stream(lane.queue()):
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x, non_blocking=True)
+            out.append(h)
+        with stats.span("fetch.wait"):
+            for lane in {lane for lane, _ in pairs}:
+                if lane.cuda:
+                    lane.queue().synchronize()
+        return [h.numpy() for h in out]
 
 
 class Sharded:

@@ -292,7 +292,9 @@ def _busy_share(obj: _Object, cold: bool) -> float | None:
     torch.cuda.synchronize(obj.dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run = _device_run(obj)
-    device_ms = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()) / 1e3
+    stats.take_spans()  # what the profile turned on: nothing here reads it
+    device_ms = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                    if not stats.is_range(e.key)) / 1e3
     return device_ms / run["total_ms"] if device_ms > 0 else None
 
 

@@ -40,6 +40,7 @@ import torch
 
 from nanorq_tpu_torch.bench import device_fields
 from nanorq_tpu_torch.device import resolve
+from nanorq_tpu_torch.utils import stats
 
 SEED = 15
 POINTS = ("1000:8", "1000:32", "1000:64", "1000:128", "1000:209", "10000:4", "50000:4")
@@ -79,10 +80,11 @@ def overlap(events) -> dict:
     """Of a torch.profiler trace's device events (`prof.events()`), in ms:
     `htod_ms`, the union of the host-to-device copies; `htod_overlap_ms`,
     the part of it during which a kernel ran; `device_ms`, the union of all
-    device activity; `kernel_sum_ms`, the kernels' durations summed."""
+    device activity; `kernel_sum_ms`, the kernels' durations summed.  The
+    program's span ranges (`utils.stats.is_range`) are not device activity."""
     copies, kernels_, every = [], [], []
     for e in events:
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or stats.is_range(e.name):
             continue
         span = (e.time_range.start, e.time_range.end)
         every.append(span)
@@ -102,8 +104,6 @@ def _sync(dev) -> None:
 
 
 def _evictions() -> int:
-    from nanorq_tpu_torch.utils import stats
-
     return stats.snapshot()["counters"].get("replay_program_evict", 0)
 
 
@@ -167,6 +167,7 @@ def point(K: int, Z: int, T: int, slices, rounds: int, dev, profile: bool = Fals
                 encode(s)
                 _sync(dev)
             prof[str(s)] = {k: round(v, 4) for k, v in overlap(p.events()).items()}
+            stats.take_spans()  # what the profile turned on: nothing here reads it
         line["profile"] = prof
     batch.C = None
     line["programs_MB"] = round(program.cached_bytes() / 2**20, 1)

@@ -181,7 +181,8 @@ def test_overlap_of_copies_and_kernels():
 
     spans = [_Span("Memcpy HtoD (Pinned -> Device)", 0, 1000), _Span("Memcpy HtoD (Pinned -> Device)", 900, 2000),
              _Span("gather_xor_kernel", 500, 1500), _Span("gf2_kernel", 1400, 2500),
-             _Span("Memcpy DtoH (Device -> Pinned)", 2500, 3000), _Span("Memset (Device)", 3000, 3100)]
+             _Span("Memcpy DtoH (Device -> Pinned)", 2500, 3000), _Span("Memset (Device)", 3000, 3100),
+             _Span("nrq.generate", 0, 4000)]  # a program span's range on the card's timeline: not device work
     got = overlap(spans)
     assert got == {"htod_ms": 2.0, "htod_overlap_ms": 1.5, "device_ms": 3.1, "kernel_sum_ms": 2.1}
 
