@@ -55,7 +55,7 @@ from nanorq_tpu_torch.codec.oti import pack_oti_common, pack_oti_scheme, split_t
 from nanorq_tpu_torch.codec.oti import unpack_oti_common, unpack_oti_scheme
 from nanorq_tpu_torch.codec.partition import Scheme, div_ceil, make_scheme, scheme_from_oti, symbol_ranges
 from nanorq_tpu_torch.device import resolve
-from nanorq_tpu_torch.io.ioctx import IOContext
+from nanorq_tpu_torch.io.ioctx import IOContext, read_rows
 from nanorq_tpu_torch.native import host_repair_shared, host_residual_flat, native_available, res_rinv
 from nanorq_tpu_torch.ops import program, wpath
 from nanorq_tpu_torch.ops.lt import lt_combine, lt_plan
@@ -267,6 +267,24 @@ class _CodecBase:
             out[col : col + len(data)] = np.frombuffer(data, np.uint8)
         return out
 
+    def _read_symbols_into(self, io: IOContext, sbn: int, K: int, out: np.ndarray) -> int:
+        """Read the block's K source symbols into out [K, T], which may be a
+        strided view.  With N=1 the block is one T-strided byte range: the
+        rows wholly inside F and inside the I/O's size (a prefix, the offsets
+        rise) go through one read_rows, and the rest (a final short symbol,
+        rows past a short I/O) through _read_symbol, which zero-pads them.
+        With N > 1, symbol by symbol.  Returns the rows the row read served."""
+        n = 0
+        if self.scheme.N == 1 and K:
+            T = self.scheme.T
+            end = min(self.scheme.F, io.size()) if hasattr(io, "size") else self.scheme.F
+            base = symbol_ranges(self.scheme, sbn, 0, K)[0][0]
+            n = min(K, max(0, (end - base) // T))
+            read_rows(io, base + T * np.arange(n, dtype=np.int64), out[:n])
+        for esi in range(n, K):
+            out[esi] = self._read_symbol(io, sbn, esi, K)
+        return n
+
     def _write_symbol(self, io: IOContext, sbn: int, esi: int, K: int, payload: np.ndarray) -> None:
         for off, length, col in symbol_ranges(self.scheme, sbn, esi, K):
             io.write_at(off, payload[col : col + length])
@@ -352,8 +370,7 @@ class Encoder(_CodecBase):
         if not b.loaded:
             ds = _cache.encoder_schedule(self.P.Kp)
             D = lanes.host_matrix(b.K, ds.M_pad, self.scheme.T, self.device)
-            for esi in range(b.K):
-                D[esi] = self._read_symbol(io, sbn, esi, b.K)
+            self._read_symbols_into(io, sbn, b.K, D[: b.K])
             b.D = D
             b.loaded = True
         return b

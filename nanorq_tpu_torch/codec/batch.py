@@ -35,8 +35,10 @@ class ObjectBatch:
 def load_object(enc: Encoder, io: IOContext, sbns=None) -> ObjectBatch:
     """Read all source symbols of the given blocks into one payload matrix,
     in pinned memory when the encoder's device is a card.  Spans
-    `load_object` > `load.alloc` (the matrix), `load.read` (the symbols);
-    counter "load_symbols" (the symbols read)."""
+    `load_object` > `load.alloc` (the matrix), `load.read` (the symbols,
+    a block's in one row read where the layout allows: `_read_symbols_into`);
+    counters "load_symbols" (the symbols read) and "load_fast" (those the
+    row read served)."""
     with stats.span("load_object"):
         sbns = list(range(enc.num_blocks)) if sbns is None else list(sbns)
         T = enc.symbol_size
@@ -45,10 +47,10 @@ def load_object(enc: Encoder, io: IOContext, sbns=None) -> ObjectBatch:
         with stats.span("load.alloc"):
             D = lanes.host_matrix(int(Ks.max(initial=0)), ds.M_pad, len(sbns) * T, enc.device)
         with stats.span("load.read"):
-            for b, (sbn, K) in enumerate(zip(sbns, Ks)):
-                for esi in range(K):
-                    D[esi, b * T : (b + 1) * T] = enc._read_symbol(io, sbn, esi, K)
+            fast = sum(enc._read_symbols_into(io, sbn, int(K), D[:K, b * T : (b + 1) * T])
+                       for b, (sbn, K) in enumerate(zip(sbns, Ks)))
         stats.count("load_symbols", int(Ks.sum()))
+        stats.count("load_fast", fast)
         return ObjectBatch(enc=enc, sbns=sbns, Ks=Ks, D=D)
 
 

@@ -12,6 +12,46 @@ import mmap
 import os
 
 import numpy as np
+import torch
+
+
+def _runs(offsets: np.ndarray, L: int):
+    """(order, sorted offsets, [start, end) pairs): the offsets sorted, cut
+    into runs of adjacent rows of L bytes."""
+    order = np.argsort(offsets, kind="stable")
+    offs = offsets[order]
+    brk = np.nonzero(np.diff(offs) != L)[0] + 1
+    return order, offs, zip(np.r_[0, brk], np.r_[brk, offs.size])
+
+
+def read_rows(io, offsets, out) -> None:
+    """Read rows of out's length at the given byte offsets of io into out [n,
+    L], which may be a strided view (the column band of one block in an
+    object's matrix).  Callers must pre-clamp rows that would run past the
+    object size, as for write_rows_at (the codec does: _read_symbols_into
+    reads the final short symbol apart).  Where io has a `buffer` (MemoryIO)
+    and the offsets rise by L (the N=1 symbol layout), the rows are one slice
+    of it, copied in one torch copy with no temporary (torch splits a large
+    copy over its intra-op threads; a read-only or reversed buffer, which
+    torch does not wrap, in one numpy copy).  Otherwise adjacent offsets are
+    merged into runs, each read with one read_at and one assignment (an
+    in-order block is one read)."""
+    offsets = np.asarray(offsets, np.int64)
+    n, L = out.shape
+    if not n:
+        return
+    buf = getattr(io, "buffer", None)
+    if buf is not None and np.all(np.diff(offsets) == L):
+        r0 = int(offsets[0])
+        src = buf[r0 : r0 + n * L].reshape(n, L)
+        if src.flags.writeable and min(src.strides) >= 0:
+            torch.from_numpy(out).copy_(torch.from_numpy(src))
+        else:
+            out[:] = src
+        return
+    order, offs, runs = _runs(offsets, L)
+    for s, e in runs:
+        out[order[s:e]] = np.frombuffer(io.read_at(int(offs[s]), int(e - s) * L), np.uint8).reshape(-1, L)
 
 
 class IOContext:
@@ -38,12 +78,14 @@ class IOContext:
         rows = np.asarray(rows, np.uint8)
         if rows.ndim == 1:
             rows = rows[None]
-        T = rows.shape[1]
-        order = np.argsort(offsets, kind="stable")
-        offs = offsets[order]
-        brk = np.nonzero(np.diff(offs) != T)[0] + 1
-        for s, e in zip(np.r_[0, brk], np.r_[brk, offs.size]):
+        order, offs, runs = _runs(offsets, rows.shape[1])
+        for s, e in runs:
             self.write_at(int(offs[s]), rows[order[s:e]].reshape(-1))
+
+    def read_rows_at(self, offsets, out) -> None:
+        """Read rows of out's length at the given byte offsets into out [n,
+        L]: `read_rows`, the mirror of write_rows_at."""
+        read_rows(self, offsets, out)
 
     def close(self) -> None:
         pass
