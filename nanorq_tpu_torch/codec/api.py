@@ -850,20 +850,27 @@ class Decoder(_CodecBase):
         structured replay reads all M_pad; span `repair.assemble`); then what
         is cached per device is fetched, on the current stream, which the
         lane's stream waits for, and the recovery launched (span
-        `repair.apply`)."""
+        `repair.apply`; a DeviceSchedule's > `repair.replay`, its arrays, its
+        program and the replay, and `repair.lt`, the gap ISIs' plan and the
+        LT combine)."""
         with stats.span("repair.assemble"):
             D_dev = lanes.assemble(lane, (1, ds.M_pad, self.scheme.T),
                                    *self._repair_parts([(sbn, gaps, overhead)], ds.M_pad))[0]
         with stats.span("repair.apply"):
             if isinstance(ds, _cache.WSchedule):
                 ds.staged(lane.device)
-                run = ds.apply
+                with lane.on():
+                    out = ds.apply(D_dev)
             else:
-                arr = device_arrays(ds, lane.device)
-                plan = lt_plan(gaps.astype(np.uint32), self.P, lane.device)
-                run = lambda D: lt_combine(program.replay(arr, D), plan)  # noqa: E731
-            with lane.on():
-                return _HostView(_HostResult(run(D_dev)[: gaps.size], lane))
+                with stats.span("repair.replay"):
+                    arr = device_arrays(ds, lane.device)
+                    with lane.on():
+                        C = program.replay(arr, D_dev)
+                with stats.span("repair.lt"):
+                    plan = lt_plan(gaps.astype(np.uint32), self.P, lane.device)
+                    with lane.on():
+                        out = lt_combine(C, plan)
+            return _HostView(_HostResult(out[: gaps.size], lane))
 
     def _repair_finish(self, io: IOContext, sbn: int, gaps: np.ndarray, sym) -> bool:
         b = self._block(sbn)
@@ -879,7 +886,9 @@ class Decoder(_CodecBase):
         `repair_block` > `repair.prepare` (the patched system's ISIs, the
         lane), `repair.plan` (`codec.cache.decoder_plan`), `repair.assemble`,
         `repair.apply` (`_repair_launch`), `repair.finish` (the download,
-        `fetch`, and the write-out)."""
+        `fetch`, and the write-out).  Counter `repair_structured_blocks` or
+        `repair_dense_blocks`: the kind of the block's plan, a DeviceSchedule
+        or a WSchedule."""
         with stats.span("repair_block"):
             with stats.span("repair.prepare"):
                 prep = self._repair_prepare(sbn)
@@ -892,6 +901,7 @@ class Decoder(_CodecBase):
             if ds is None:
                 stats.count("repair_block_failed")
                 return False  # rank deficient: feed more symbols, retry
+            stats.count("repair_dense_blocks" if isinstance(ds, _cache.WSchedule) else "repair_structured_blocks")
             sym = self._repair_launch(lane, sbn, gaps, overhead, ds)
             with stats.span("repair.finish"):
                 return self._repair_finish(io, sbn, gaps, sym)
